@@ -5,17 +5,29 @@
 
 Phases, each printing one line; any failure exits non-zero:
 
-1. device  - require CUDA; print the card and its power limit; no TF32.
-2. build   - build every hand-written kernel from csrc/ with nvcc (sm_90a).
-3. kernel  - the NR kernel (csrc/nr_small.cu) against its plain PyTorch
-             version and the torch-op solver on 8192 case33 lanes drawn from
-             a numpy seed: agreement, divergence isolation, warm start, NaN
-             lane, false-divergence shares, median times and the bound.
-4. golden  - the committed 48-step golden trajectory replayed through the
-             env on the card (float32 tolerances of tests/test_env.py).
-5. train   - the main path: MAPPO on case33 at 8192 lanes (the bench.py
-             configuration), one warm-up chunk, then one full training
-             episode with every kernel's launch count read around it.
+1. device       - require CUDA; print the card and its power limit; no TF32.
+2. build        - build every hand-written kernel from csrc/ with nvcc
+                  (sm_90a), one nvcc per source, all started together.
+3. kernel       - the small-grid NR kernel (csrc/nr_small.cu) against its
+                  plain PyTorch version and the torch-op solver on 8192
+                  case33 lanes drawn from a numpy seed: agreement, divergence
+                  isolation, warm start, NaN lane, false-divergence shares,
+                  median times and the bound.
+4. kernel_large - the large-grid NR kernel (csrc/nr_large.cu) against its
+                  plain version on the test points of tests/test_pallas.py at
+                  case33, case141 and case322, then the same checks as
+                  `kernel` on 4096 env-like case322 lanes.
+5. golden       - the committed 48-step golden trajectory replayed through
+                  the env on the card (float32 tolerances of tests/test_env.py).
+6. train        - the case33 path: MAPPO on case33 at 8192 lanes (the
+                  bench.py configuration), one warm-up chunk, then one full
+                  training episode with the small kernel's launches counted.
+7. train322     - the case322 path through the port's CLI,
+                  ``mapdn_torch.train.main``, with the flags of
+                  train_case322.sh at 4096 lanes: one training episode, the
+                  episode-0 eval and the final save; then ``--resume`` for one
+                  more episode.  The large kernel's launches are counted
+                  around each run, the eval's apart from the training's.
 
 The line before the last two is the kernels' JSON record, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -34,8 +46,8 @@ import torch
 # tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-N_LANES = 8192
-
+N_LANES = 8192          # case33 lanes (bench.py)
+N_LANES_322 = 4096      # case322 lanes (scripts/bench_cases.py:35)
 
 def say(phase, **kw):
     print(f"[{phase}] " + json.dumps(kw), flush=True)
@@ -75,14 +87,14 @@ def phase_device():
 def phase_build():
     from mapdn_torch.utils import cuda_build
     t0 = time.perf_counter()
-    cuda_build.build("nr_small")
+    cuda_build.build("nr_small", "nr_large")
     ptxas = {name: [ln.strip() for ln in log["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in cuda_build.BUILD_LOG.items()}
     say("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
 
-def case33_injections(grid, pv_max, load_p, load_q, lanes, seed=0):
+def env_injections(grid, pv_max, load_p, load_q, lanes, seed=0):
     """Operating points like the env's: loads at 50-130 % of base, PV at
     0-80 % of nameplate, reactive set-points a * sqrt(s_max^2 - p^2)."""
     rng = np.random.RandomState(seed)
@@ -100,6 +112,45 @@ def case33_injections(grid, pv_max, load_p, load_q, lanes, seed=0):
             torch.as_tensor(q, dtype=torch.float32, device=dev))
 
 
+def test_point_injections(grid, load_p, load_q, lanes):
+    """The operating points of tests/test_pallas.py: base loads scaled 0.6 ..
+    1.2 across the lanes."""
+    inc = grid.load_inc.double().cpu().numpy()
+    scale = np.linspace(0.6, 1.2, lanes)[:, None]
+    p = -(np.asarray(load_p) @ inc.T)[None] * scale
+    q = -(np.asarray(load_q) @ inc.T)[None] * scale
+    return (torch.as_tensor(p, dtype=torch.float32, device=grid.device),
+            torch.as_tensor(q, dtype=torch.float32, device=grid.device))
+
+
+def compare_packed(ctx, a, b, tol):
+    """Kernel ``a`` against plain ``b``, each ``(v, err, n_iter)`` on the
+    same packed operands of context ``ctx`` (either layout): converged
+    flags, n_iter, the largest vm/va difference over lanes that ran the
+    same iterations and over all converged lanes, and the largest
+    difference of the packed state (e, f) over converged lanes."""
+    (av, aerr, ait), (bv, berr, bit) = a, b
+    conv_a = (aerr < tol) & torch.isfinite(aerr)
+    conv_b = (berr < tol) & torch.isfinite(berr)
+    (ae, af), (be, bf) = ctx.unpack(av), ctx.unpack(bv)
+    ok = conv_a & conv_b
+    same = ok & (ait == bit)
+    lane_err = torch.maximum(
+        (torch.sqrt(ae * ae + af * af) - torch.sqrt(be * be + bf * bf)).abs().amax(1),
+        (torch.atan2(af, ae) - torch.atan2(bf, be)).abs().amax(1))
+    packed_err = torch.maximum((ae - be).abs().amax(1), (af - bf).abs().amax(1))
+    worst = lambda x, sel: float(x[sel].max()) if bool(sel.any()) else 0.0
+    return dict(
+        converged_equal=bool((conv_a == conv_b).all()),
+        n_converged=int(conv_a.sum()),
+        max_n_iter_diff=int((ait - bit).abs().max()),
+        max_abs_err_same_iters=worst(lane_err, same),
+        max_abs_err_all=worst(lane_err, ok),
+        lanes_one_iter_apart=int((ok & ~same).sum()),
+        packed_max_abs_err_same_iters=worst(packed_err, same),
+        packed_max_abs_err=worst(packed_err, ok))
+
+
 def phase_kernel():
     from mapdn_torch.grid import make_case
     from mapdn_torch.pf import fused_nr
@@ -113,11 +164,7 @@ def phase_kernel():
     # (a) the tolerance of tests/test_pallas.py on its own operating points
     # (base load scaled 0.6 .. 1.2 across the lanes): every lane within
     # 2e-5 of the plain version, same converged flags, n_iter within 1
-    base_p = -(load_p @ grid.load_inc.double().cpu().numpy().T)
-    base_q = -(load_q @ grid.load_inc.double().cpu().numpy().T)
-    scale = np.linspace(0.6, 1.2, N_LANES)[:, None]
-    pa = torch.as_tensor(base_p[None] * scale, dtype=torch.float32, device="cuda")
-    qa = torch.as_tensor(base_q[None] * scale, dtype=torch.float32, device="cuda")
+    pa, qa = test_point_injections(grid, load_p, load_q, N_LANES)
     ka, ra = nr_solve_small(grid, pa, qa), nr_solve_small_ref(grid, pa, qa)
     err_a = max(float((ka.vm - ra.vm).abs().max()), float((ka.va - ra.va).abs().max()))
     assert bool(ka.converged.all()) and bool((ka.converged == ra.converged).all())
@@ -130,7 +177,7 @@ def phase_kernel():
     # own accuracy against float64 (~5e-5 here, the same for both).  So:
     # 2e-5 on lanes with equal n_iter, 1e-4 on all lanes, both versions
     # held to 1e-4 of a float64 solve at tol 1e-12.
-    p, q = case33_injections(grid, pv_max, load_p, load_q, N_LANES)
+    p, q = env_injections(grid, pv_max, load_p, load_q, N_LANES)
     out = nr_solve_small(grid, p, q)
     ref = nr_solve_small_ref(grid, p, q)
     ops = packed_operators(grid)
@@ -193,18 +240,15 @@ def phase_kernel():
     solver_ms = {"kernel": cuda_median_ms(lambda: solve_kernel(p, q)),
                  "plain": cuda_median_ms(lambda: nr_solve_small_ref(grid, p, q, ctx=ctx)),
                  "torch": cuda_median_ms(lambda: nr_solve(grid, p, q, ops=ops))}
-    spec, v0 = fused_nr._pack(ctx, p, q, None, None, torch.float32)
+    spec, v0 = ctx.pack(p, q, None, None, torch.float32)
     kops = ctx.tensors(torch.float32, p.device)
     kw = dict(tol=1e-7, max_iter=20, inner_iters=3)
-    kv, kerr, kit = fused_nr.nr_small_kernel(spec, v0, *kops, **kw)
-    pv, perr, pit = fused_nr.nr_small_plain(spec, v0, *kops, **kw)
-    torch.cuda.synchronize()
-    assert bool(((kerr < 1e-7) == (perr < 1e-7)).all())
-    fin = torch.isfinite(kerr)
-    col_err = (kv - pv).abs().amax(0)
-    packed_err_same = float(col_err[fin & (kit == pit)].max())
-    packed_err = float(col_err[fin].max())
-    assert packed_err_same <= 2e-5 and packed_err <= 1e-4, (packed_err_same, packed_err)
+    kres = fused_nr.nr_small_kernel(spec, v0, *kops, **kw)
+    cmp = compare_packed(ctx, kres, fused_nr.nr_small_plain(spec, v0, *kops, **kw),
+                         kw["tol"])
+    assert cmp["converged_equal"], cmp
+    assert cmp["packed_max_abs_err_same_iters"] <= 2e-5 and cmp["packed_max_abs_err"] <= 1e-4, cmp
+    kit = kres[2]
     ms = cuda_median_ms(lambda: fused_nr.nr_small_kernel(spec, v0, *kops, **kw))
     plain_ms = cuda_median_ms(lambda: fused_nr.nr_small_plain(spec, v0, *kops, **kw))
 
@@ -234,8 +278,7 @@ def phase_kernel():
     fdiv["kernel_vs_torch"] = float((~out.converged & tor.converged).double().mean())
     say("kernel", lanes=N_LANES, max_abs_err_test_points=err_a,
         max_abs_err_same_iters=err_same, max_abs_err_all=err_all,
-        packed_max_abs_err_same_iters=packed_err_same, packed_max_abs_err=packed_err,
-        lanes_one_iter_apart=int((ok & ~same).sum()), vm_err_vs_float64=vs64,
+        packed=cmp, lanes_one_iter_apart=int((ok & ~same).sum()), vm_err_vs_float64=vs64,
         warm_start_zero_iter_share_tol_1e_7=zero_iter,
         max_n_iter_diff=d_it, mean_n_iter=float(kit.double().mean()),
         false_divergence=fdiv, ms=ms, plain_ms=plain_ms, solver_ms=solver_ms,
@@ -244,7 +287,153 @@ def phase_kernel():
         mbytes=nbytes / 1e6)
     return dict(name="nr_small", route="cuda", source="mapdn_torch/csrc/nr_small.cu",
                 replaces="mapdn_tpu/pf/pallas_nr.py:404",
-                max_abs_err=packed_err, ms=ms, plain_ms=plain_ms,
+                max_abs_err=cmp["packed_max_abs_err"], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_kernel_large():
+    from mapdn_torch.grid import make_case
+    from mapdn_torch.pf import fused_nr
+    from mapdn_torch.pf.fused_nr import (
+        get_ctx, make_solver, nr_solve_large, nr_solve_large_ref)
+    from mapdn_torch.pf.newton import nr_solve, packed_operators
+
+    kw = dict(tol=1e-7, max_iter=20, inner_iters=3)
+    lanes = N_LANES_322
+
+    # (a) the test points of tests/test_pallas.py at every npad the kernel
+    # holds: every lane converges, in both versions, n_iter within 1, vm/va
+    # within 2e-5 on lanes that ran the same iterations (the tolerance of
+    # the TPU kernels' tests against the XLA solver)
+    test_points = {}
+    for case in ("case33", "case141", "case322"):
+        grid, load_p, load_q, _ = make_case(case, dtype=torch.float32, device="cuda")
+        ctx = get_ctx(grid)
+        p, q = test_point_injections(grid, load_p, load_q, lanes)
+        spec, v0 = ctx.pack(p, q, None, None, torch.float32)
+        kops = ctx.tensors(torch.float32, p.device)
+        cmp = compare_packed(ctx, fused_nr.nr_large_kernel(spec, v0, *kops, **kw),
+                             fused_nr.nr_large_plain(spec, v0, *kops, **kw), kw["tol"])
+        assert cmp["converged_equal"] and cmp["n_converged"] == lanes, (case, cmp)
+        assert cmp["max_n_iter_diff"] <= 1 and cmp["max_abs_err_same_iters"] <= 2e-5, (case, cmp)
+        test_points[case] = dict(npad=ctx.npad, **cmp)
+
+    # (b) env-like case322 operating points.  At case322 the convergence test
+    # max|F| / s_ref < 1e-7 is loose: it is taken in Y-normalized units
+    # (inv_c = 1.07e-5), and a lane that meets it after one Newton iteration
+    # still lies up to 4.8e-4 from the fully converged solution (float64,
+    # tests/test_pallas.py points, CPU).  A lane whose error lands next to
+    # tol can stop one iteration apart in the two versions, and its voltages
+    # then differ by up to that much.  So: 2e-5 on lanes with equal n_iter,
+    # 1e-3 on all lanes; each float32 solver's distance from a float64 solve
+    # at tol 1e-12 is reported, the kernel's held to 1e-3 and to the
+    # torch-op solver's plus 2e-5.
+    grid, load_p, load_q, pv_max = make_case("case322", dtype=torch.float32, device="cuda")
+    n = grid.n_bus
+    ctx = get_ctx(grid)
+    p, q = env_injections(grid, pv_max, load_p, load_q, lanes)
+    out = nr_solve_large(grid, p, q)
+    ref = nr_solve_large_ref(grid, p, q)
+    ops = packed_operators(grid)
+    tor = nr_solve(grid, p, q, ops=ops)
+    g64, *_ = make_case("case322", dtype=torch.float64, device="cuda")
+    tru = nr_solve_large_ref(g64, p.double(), q.double(), tol=1e-12)
+    torch.cuda.synchronize()
+    for name, res in (("kernel", out), ("plain", ref), ("torch", tor)):
+        assert res.vm.shape == (lanes, n) and res.n_iter.shape == (lanes,), name
+    assert bool((out.converged == ref.converged).all()), "converged differs"
+    d_it = int((out.n_iter - ref.n_iter).abs().max())
+    assert d_it <= 1, f"n_iter differs by {d_it}"
+    ok = out.converged
+    same = ok & (out.n_iter == ref.n_iter)
+    lane_err = torch.maximum((out.vm - ref.vm).abs().amax(1), (out.va - ref.va).abs().amax(1))
+    err_same = float(lane_err[same].max())
+    err_all = float(lane_err[ok].max())
+    assert err_same <= 2e-5 and err_all <= 1e-3, (err_same, err_all)
+    vs64 = {name: float((res.vm.double() - tru.vm).abs()[res.converged & tru.converged].max())
+            for name, res in (("kernel", out), ("plain", ref), ("torch", tor))}
+    assert vs64["kernel"] <= min(1e-3, vs64["torch"] + 2e-5), vs64
+    assert bool(torch.isfinite(out.vm[ok]).all()) and bool(torch.isfinite(out.pl_mw[ok]).all())
+
+    # divergence isolation within one block (8 lanes), a warm start taking
+    # no iteration (tol 1e-6: 1e-7 is the float32 rounding floor, ROADMAP
+    # Queue C), a NaN lane that never reads as converged and stays in its
+    # lane
+    pa, qa = test_point_injections(grid, load_p, load_q, 64)
+    pb = pa.clone()
+    pb[2:4] *= 500.0
+    bad = nr_solve_large(grid, pb, qa)
+    assert bool(bad.converged[:2].all()) and not bool(bad.converged[2:4].any())
+    assert bool(bad.converged[4:].all()) and bool(torch.isfinite(bad.vm[:2]).all())
+    cold = nr_solve_large(grid, pa, qa)
+    warm = nr_solve_large(grid, pa, qa, vm0=cold.vm, va0=cold.va, tol=1e-6)
+    assert bool(warm.converged.all()) and int(warm.n_iter.max()) == 0
+    assert float((warm.vm - cold.vm).abs().max()) <= 1e-6
+    pn = pa.clone()
+    pn[5, 7] = float("nan")
+    nan = nr_solve_large(grid, pn, qa)
+    assert not bool(nan.converged[5]) and bool(nan.converged[:5].all())
+    assert bool(nan.converged[6:].all())
+    torch.testing.assert_close(nan.vm[:5], cold.vm[:5], rtol=0, atol=0)
+    warm_b = nr_solve_large(grid, p, q, vm0=out.vm, va0=out.va)
+    warm_r = nr_solve_large_ref(grid, p, q, vm0=ref.vm, va0=ref.va)
+    zero_iter = {"kernel": float((warm_b.n_iter[ok] == 0).double().mean()),
+                 "plain": float((warm_r.n_iter[ref.converged] == 0).double().mean())}
+
+    # timing: the solvers from injections to PFResult as the env calls them
+    # (each with its operands resolved once), then the kernel alone against
+    # its plain version on the same packed operands
+    solve_auto = make_solver(grid, backend="auto")
+    solver_ms = {"kernel": cuda_median_ms(lambda: solve_auto(p, q)),
+                 "plain": cuda_median_ms(lambda: nr_solve_large_ref(grid, p, q, ctx=ctx)),
+                 "torch": cuda_median_ms(lambda: nr_solve(grid, p, q, ops=ops))}
+    spec, v0 = ctx.pack(p, q, None, None, torch.float32)
+    kops = ctx.tensors(torch.float32, p.device)
+    kres = fused_nr.nr_large_kernel(spec, v0, *kops, **kw)
+    cmp = compare_packed(ctx, kres, fused_nr.nr_large_plain(spec, v0, *kops, **kw), kw["tol"])
+    assert cmp["converged_equal"] and cmp["max_abs_err_same_iters"] <= 2e-5, cmp
+    ms = cuda_median_ms(lambda: fused_nr.nr_large_kernel(spec, v0, *kops, **kw))
+    plain_ms = cuda_median_ms(lambda: fused_nr.nr_large_plain(spec, v0, *kops, **kw))
+
+    # bound of the kernel's function on these inputs, counted as for the
+    # small kernel: per lane one mismatch product with Y, per Newton
+    # iteration it ran (inner_iters + 1) products with Y and with W, each at
+    # 2 flops per nonzero of its operator (case322's packed Y is 0.65 %
+    # full, W 70 %), at the FP32 peak; bytes: spec and v0 read, the
+    # operators, rowsum and mask read once, v, err and n_iter written.  The
+    # kernel runs every product dense on the padded (2npad x 2npad)
+    # operators for all 8 lanes of a block while any of them iterates:
+    # flops_padded
+    kit = kres[2]
+    m = 2 * ctx.npad
+    inner = kw["inner_iters"]
+    nnz_y, nnz_w = int(np.count_nonzero(ctx.ypack)), int(np.count_nonzero(ctx.wpack))
+    lane_iters = float(kit.double().sum())
+    flops = 2.0 * (nnz_y * (lanes + (inner + 1) * lane_iters)
+                   + nnz_w * (inner + 1) * lane_iters)
+    block_iters = torch.nn.functional.pad(kit, (0, -lanes % 8)).view(-1, 8).amax(1)
+    flops_padded = 2.0 * m * m * 8 * float((1 + 2 * (inner + 1) * block_iters.double()).sum())
+    nbytes = 4 * (3 * m * lanes + 2 * m * m + 2 * m + 2 * lanes)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops > t_bytes else "bytes"
+    fdiv = {name: float((~res.converged).double().mean())
+            for name, res in (("kernel", out), ("plain", ref), ("torch", tor))}
+    fdiv["kernel_vs_torch"] = float((~out.converged & tor.converged).double().mean())
+    say("kernel_large", lanes=lanes, test_points=test_points,
+        max_abs_err_same_iters=err_same, max_abs_err_all=err_all,
+        lanes_one_iter_apart=int((ok & ~same).sum()), max_n_iter_diff=d_it,
+        packed=cmp, vm_err_vs_float64=vs64,
+        warm_start_zero_iter_share_tol_1e_7=zero_iter,
+        mean_n_iter=float(kit.double().mean()),
+        mean_block_iters=float(block_iters.double().mean()),
+        false_divergence=fdiv, ms=ms, plain_ms=plain_ms, solver_ms=solver_ms,
+        bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+        gflop_padded=flops_padded / 1e9, nnz_y=nnz_y, nnz_w=nnz_w,
+        mbytes=nbytes / 1e6)
+    return dict(name="nr_large", route="cuda", source="mapdn_torch/csrc/nr_large.cu",
+                replaces="mapdn_tpu/pf/pallas_nr.py:158",
+                max_abs_err=cmp["packed_max_abs_err"], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
@@ -327,13 +516,101 @@ def phase_train(smi):
     return launches
 
 
+def case322_flags():
+    """The flags of train_case322.sh at the lane count of
+    scripts/bench_cases.py."""
+    return ["--alg", "mappo", "--mode", "distributed",
+            "--scenario", "case322_3min_final", "--voltage-barrier-type", "bowl",
+            "--n-envs", str(N_LANES_322)]
+
+
+def phase_train322(smi):
+    """The case322 path through the CLI, with the flags of train_case322.sh
+    at the lane count of scripts/bench_cases.py: one training episode, the
+    episode-0 eval and the final save; then a second process-like run that
+    restores the checkpoint and trains one more episode.
+
+    The large kernel's count is set to 0 before each run and read after it.
+    The eval's share is read around each ``PGTrainer.evaluate`` call (the
+    eval runs 10 lanes, not 4096), so each run's training launches are its
+    count less its eval's.  Returns the resumed run's training launches."""
+    import tempfile
+
+    from mapdn_torch import train
+    from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.pf.fused_nr import nr_solve_large
+
+    evaluate, eval_launches = PGTrainer.evaluate, []
+
+    def counted_evaluate(self):
+        before = nr_solve_large.launches
+        out = evaluate(self)
+        eval_launches.append(nr_solve_large.launches - before)
+        return out
+
+    PGTrainer.evaluate = counted_evaluate
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            flags = case322_flags() + ["--save-path", tmp]
+            runs = []
+            for extra in (["--episodes", "1"], ["--episodes", "2", "--resume"]):
+                torch.cuda.reset_peak_memory_stats()
+                eval_launches.clear()
+                nr_solve_large.launches = 0
+                t0 = time.perf_counter()
+                summary = train.main(flags + extra)
+                wall = time.perf_counter() - t0
+                launches, in_eval = nr_solve_large.launches, sum(eval_launches)
+                trained = len(summary["episode_s"])
+                assert trained == 1, summary["episode_s"]
+                assert launches - in_eval >= 240 * trained, (launches, in_eval)
+                assert in_eval >= 240 * len(summary["eval_s"]), (in_eval, summary["eval_s"])
+                for stat in summary["stats"]:
+                    for k, v in stat.items():
+                        assert math.isfinite(v), (k, v)
+                runs.append(dict(summary, launches=launches - in_eval,
+                                 eval_launches=in_eval, wall_s=wall,
+                                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+            first, second = runs
+            assert any(k.startswith("mean_test_") for k in first["stats"][0])
+            assert second["start_episode"] == 1 and second["episodes"] == 2
+            model_dir = first["model_dir"]
+            assert os.path.isfile(os.path.join(model_dir, "model.pt"))
+            ckpts = sorted(os.listdir(os.path.join(model_dir, "checkpoint")))
+            assert ckpts == ["ckpt_00000001", "ckpt_00000002"], ckpts
+            with open(os.path.join(first["tb_dir"], "metrics.jsonl")) as fh:
+                logged = [json.loads(line) for line in fh]
+            assert [r["step"] for r in logged] == [1, 2], logged
+    finally:
+        PGTrainer.evaluate = evaluate
+
+    env_steps = first["max_steps"]
+    stat0 = first["stats"][0]
+    say("train322", n_envs=N_LANES_322, env_steps=env_steps,
+        kernel_launches_train=[r["launches"] for r in runs],
+        kernel_launches_eval=[r["eval_launches"] for r in runs],
+        env_steps_per_s=[env_steps * N_LANES_322 / r["episode_s"][0] for r in runs],
+        episode_s=[r["episode_s"][0] for r in runs], eval_s=first["eval_s"],
+        save_s=[r["save_s"] for r in runs], restore_s=second["restore_s"],
+        wall_s=[r["wall_s"] for r in runs],
+        peak_mem_gib=[r["peak_mem_gib"] for r in runs],
+        reward=[r["stats"][0]["mean_train_reward"] for r in runs],
+        test_reward=stat0["mean_test_reward"],
+        value_loss=[r["stats"][0]["mean_train_value_loss"] for r in runs],
+        policy_loss=[r["stats"][0]["mean_train_policy_loss"] for r in runs],
+        card=smi)
+    return second["launches"]
+
+
 def main():
     smi = phase_device()
     phase_build()
-    record = phase_kernel()
+    small = phase_kernel()
+    large = phase_kernel_large()
     phase_golden()
-    record["launches"] = phase_train(smi)
-    print(json.dumps({"kernels": [record]}))
+    small["launches"] = phase_train(smi)
+    large["launches"] = phase_train322(smi)
+    print(json.dumps({"kernels": [small, large]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,10 @@ active voltage control), for one NVIDIA Hopper GPU.
 
 The module tree mirrors mapdn_tpu's so each file has an obvious counterpart:
 
+    CLI         mapdn_torch.train          (python -m mapdn_torch.train, as train.py)
     config      mapdn_torch.utils.config   (3-layer YAML merge -> dataclass)
-    runtime     mapdn_torch.learn          (trainer, replay, losses, sampling)
+    utils       mapdn_torch.utils          (metrics logging, checkpoints, kernel build)
+    runtime     mapdn_torch.learn          (trainer with eval, replay, losses, sampling)
     algorithms  mapdn_torch.algos          (MAPPO)
     networks    mapdn_torch.nets           (GRU/MLP agents, critics)
     environment mapdn_torch.envs           (natively batched voltage control)
@@ -12,7 +14,7 @@ The module tree mirrors mapdn_tpu's so each file has an obvious counterpart:
     kernels     mapdn_torch/csrc           (hand-written CUDA, built at first use)
 
 Nothing here imports JAX or mapdn_tpu.  Entry points run on the GPU unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"`` (``--platform cpu`` on the CLI).
 """
 
 __version__ = "0.1.0"

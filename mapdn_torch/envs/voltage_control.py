@@ -58,9 +58,10 @@ class EnvConfig:
     pf_tol: float = 1e-7
     pf_max_iter: int = 20
     reset_retries: int = 4
-    # power-flow solver (pf.fused_nr.make_solver): 'auto' runs the CUDA
-    # kernel for grids of <= 64 buses and the torch-op solver above;
-    # 'kernel' / 'torch' force one path
+    # power-flow solver (pf.fused_nr.make_solver): 'auto' runs the small
+    # CUDA kernel for grids of <= 64 buses, the large one above 200 buses
+    # and the torch-op solver in between; 'kernel' takes a kernel for every
+    # grid, 'torch' never
     pf_backend: str = "auto"
     # Richardson refinement steps per Newton direction
     pf_inner_iters: int = 3
@@ -287,13 +288,19 @@ class VoltageControlEnv:
                  self.obs_base_size), dtype=self.dtype, device=self.device))
         return state, ok
 
-    def reset(self, n_lanes, generator=None):
+    def reset(self, n_lanes, generator=None, draws: Optional[dict] = None):
         """Random-window reset with bounded solvability retry
         (voltage_control_env.py:96-135 retries unboundedly; here at most
         cfg.reset_retries attempts, keeping the last one).  A lane whose
-        attempts all fail comes back terminated."""
-        state, ok = self._attempt_reset(
-            self._sample_start(n_lanes, generator), True, generator)
+        attempts all fail comes back terminated.  ``draws``: optional
+        explicit ``t0``, ``noise`` and ``a0`` of the first attempt."""
+        draws = draws or {}
+        t0 = draws.get("t0")
+        if t0 is None:
+            t0 = self._sample_start(n_lanes, generator)
+        state, ok = self._attempt_reset(t0, True, generator,
+                                        noise=draws.get("noise"),
+                                        a0=draws.get("a0"))
         tries = 1
         while tries < self.cfg.reset_retries and not bool(ok.all()):
             again, ok2 = self._attempt_reset(

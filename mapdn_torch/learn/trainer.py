@@ -20,7 +20,9 @@ Randomness comes from the carry's ``torch.Generator`` on the trainer's
 device.  ``_train_chunk`` also takes the draws explicitly (the parity tests
 replay the JAX package's key splits): ``draws = {"steps": [{"action_noise":
 (L, n, act), "env": {...}} per step], "value_lanes": (E_v, lanes),
-"policy_lanes": (E_p, lanes)}``, any part of which may be missing.
+"policy_lanes": (E_p, lanes)}``, any part of which may be missing; so does
+``_eval_rollout``: ``draws = {"reset": {"t0", "noise", "a0"}, "steps":
+[{"step_noise": ...} per step]}``.
 """
 from __future__ import annotations
 
@@ -301,6 +303,41 @@ class PGTrainer:
             stats.append(st)
         return carry, _mean_stats(stats)
 
+    # ------------------------------------------------------------- eval loop
+    @torch.no_grad()
+    def _eval_rollout(self, algo, generator, draws=None):
+        """``num_eval_episodes`` greedy episodes of ``max_steps`` steps, one
+        lane each (reference model.py:265-302).
+
+        Each lane's reward and info are summed over its alive steps (the
+        terminal step included) and divided by that lane's own length, then
+        averaged over lanes (the reference's mean-of-means,
+        model.py:293-301); a flat mean over alive samples would over-weight
+        long-surviving episodes."""
+        cfg = self.cfg
+        draws = draws or {}
+        step_draws = draws.get("steps") or [None] * cfg.max_steps
+        n_eval = cfg.num_eval_episodes
+        env_state, obs, _ = self.env.reset(n_eval, generator, draws=draws.get("reset"))
+        hid = self.model.init_hidden(n_eval, obs.dtype)
+        alive = torch.ones(n_eval, dtype=obs.dtype, device=obs.device)
+        n_alive = torch.zeros_like(alive)
+        sums = collections.defaultdict(lambda: torch.zeros_like(alive))
+        for t in range(cfg.max_steps):
+            _, action_pol, _, _, hid = self.model.get_actions(
+                algo.policy, obs, hid, status="test", exploration=False,
+                avail=self.avail)
+            out = self.env.step(env_state, self.env.translate_actions(action_pol),
+                                generator, noise=(step_draws[t] or {}).get("step_noise"))
+            sums["mean_test_reward"] += out.reward * alive
+            for k, v in out.info.items():
+                sums["mean_test_" + k] += v * alive
+            n_alive += alive
+            alive = alive * (1.0 - out.terminated.to(alive.dtype))
+            env_state, obs = out.state, out.obs
+        ep_len = torch.clamp(n_alive, min=1.0)
+        return {k: torch.mean(v / ep_len) for k, v in sums.items()}
+
     # -------------------------------------------------------------- user API
     def run_episode(self) -> Dict[str, float]:
         """One training 'episode' = max_steps vectorized env steps with the
@@ -308,6 +345,11 @@ class PGTrainer:
         self.carry, stats = self._train_episode(self.carry)
         self.steps += self._chunk_len * self._chunks_per_episode
         self.episodes += 1
+        return {k: float(v) for k, v in stats.items()}
+
+    def evaluate(self) -> Dict[str, float]:
+        """Greedy eval episodes drawn from the carry's generator."""
+        stats = self._eval_rollout(self.carry.algo, self.carry.generator)
         return {k: float(v) for k, v in stats.items()}
 
     def setup(self, seed=0):

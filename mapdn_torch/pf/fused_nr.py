@@ -1,22 +1,32 @@
-"""Whole-solve batched Newton-Raphson for small grids: CUDA kernel + plain twin.
+"""Whole-solve batched Newton-Raphson: the two CUDA kernels and their plain twins.
 
-Port of the small-grid half of ``mapdn_tpu/pf/pallas_nr.py``: the packed,
-transposed operands (``NRSmallContext``, from ``PallasNRSmallContext``); the
-Pallas kernel ``_nr_kernel_small``, which becomes the CUDA kernel
-``csrc/nr_small.cu`` launched by :func:`nr_small_kernel`, beside its plain
-PyTorch version :func:`nr_small_plain` on the same packed operands; the
-solvers around each, :func:`nr_solve_small` (from ``nr_solve_pallas_small``)
-and :func:`nr_solve_small_ref`; and the dispatcher :func:`make_solver` (in
-place of ``make_auto_solver``).
+Port of ``mapdn_tpu/pf/pallas_nr.py``.  Each Pallas kernel becomes a CUDA
+kernel beside a plain PyTorch version on the same packed operands:
 
-Layout: buses on rows (padded to ``nb = round_up(n, 8)``), lanes on
-columns; every state array is ``(2nb, lanes)`` of [real-half; imag-half] and
-the operators act by left-multiplication.  The algorithm is that of
-:func:`mapdn_torch.pf.newton.nr_solve`; the kernel carries the mismatch
-between iterations, so each iteration evaluates it once.
+* small grids (n_bus <= 64): ``NRSmallContext`` (from
+  ``PallasNRSmallContext``), the kernel ``csrc/nr_small.cu`` (from
+  ``_nr_kernel_small``) launched by :func:`nr_small_kernel`, its plain
+  version :func:`nr_small_plain`, and the solvers :func:`nr_solve_small`
+  (from ``nr_solve_pallas_small``) and :func:`nr_solve_small_ref`.  Buses on
+  rows (padded to ``nb = round_up(n, 8)``), lanes on columns: every state
+  array is ``(2nb, lanes)`` of [real-half; imag-half] and the operators act
+  by left-multiplication.
+* large grids: ``NRContext`` (from ``PallasNRContext``), the kernel
+  ``csrc/nr_large.cu`` (from ``_nr_kernel``) launched by
+  :func:`nr_large_kernel`, its plain version :func:`nr_large_plain`, and the
+  solvers :func:`nr_solve_large` (from ``nr_solve_pallas``) and
+  :func:`nr_solve_large_ref`.  Lanes on rows, buses on columns (padded to
+  ``npad = round_up(max(n, 128), 128)``): every state array is
+  ``(lanes, 2npad)`` of [real-half | imag-half] and the operators act by
+  right-multiplication.
 
-The wrapper launches the kernel for CUDA tensors and takes the plain
-version only for CPU tensors: there is no fall-back from one to the other.
+Both compute the algorithm of :func:`mapdn_torch.pf.newton.nr_solve`; the
+kernels carry the mismatch between iterations, so each iteration evaluates
+it once.  :func:`make_solver` (in place of ``make_auto_solver``) picks the
+solver of a grid by configuration.
+
+The wrappers launch the kernels for CUDA tensors and take the plain versions
+only for CPU tensors: there is no fall-back from one to the other.
 """
 from __future__ import annotations
 
@@ -30,25 +40,65 @@ from mapdn_torch.pf.newton import _result, nr_solve, packed_operators
 from mapdn_torch.utils import cuda_build
 
 
-SMALL_NB = 64   # the kernel's (and pallas_nr.py's `small`) bus-count bound
+SMALL_NB = 64   # the small kernel's (and pallas_nr.py's `small`) bus-count bound
+LARGE_MIN_BUS = 200   # "auto" sends larger grids to the large kernel (pallas_nr.py:605)
+LARGE_NPADS = (128, 256, 384)   # the padded bus counts the large kernel holds
 
 
 def _round_up(x, m):
     return -(-x // m) * m
 
 
-class NRSmallContext:
+def _npad(n_bus):
+    """The large kernel's padded bus count (pallas_nr.py's npad)."""
+    return _round_up(max(n_bus, 128), 128)
+
+
+def _np64(t):
+    return t.detach().cpu().double().numpy()
+
+
+class _PackedOperands:
+    """The operands of one grid's kernel, cached as tensors per dtype and
+    device.  Subclasses set ``_OPERANDS`` and define ``pack``/``unpack``."""
+
+    _OPERANDS = ()
+
+    def tensors(self, dtype, device):
+        """The operators, rowsum and mask as contiguous tensors, cached."""
+        key = (dtype, str(device))
+        if key not in self._tensors:
+            self._tensors[key] = tuple(
+                torch.as_tensor(getattr(self, a), device=device).to(dtype).contiguous()
+                for a in self._OPERANDS)
+        return self._tensors[key]
+
+
+def _start(ctx, lanes, vm0, va0, kw):
+    """(vm0, va0) as (lanes, n): a flat start where not given."""
+    n = ctx.n
+    if vm0 is None:
+        vm0 = torch.ones((lanes, n), **kw)
+        vm0[:, 0] = ctx.slack_vm
+    vm0 = vm0.reshape(-1, n).to(kw["dtype"])
+    va0 = (torch.zeros((lanes, n), **kw) if va0 is None
+           else va0.reshape(-1, n).to(kw["dtype"]))
+    return vm0, va0
+
+
+class NRSmallContext(_PackedOperands):
     """Y-normalized, padded, packed operands of one grid (numpy float64).
 
     ``ymat``/``wmat`` are ``(2nb, 2nb)``, ``rowsum``/``mask`` ``(2nb, 1)``;
     the float32 casts of these arrays are the JAX package's
     ``PallasNRSmallContext`` operands bit for bit."""
 
+    _OPERANDS = ("ymat", "wmat", "rowsum", "mask")
+
     def __init__(self, grid):
         n = grid.n_bus
         nb = _round_up(n, 8)
-        g64 = grid.g_mat.detach().cpu().double().numpy()
-        b64 = grid.b_mat.detach().cpu().double().numpy()
+        g64, b64 = _np64(grid.g_mat), _np64(grid.b_mat)
         y_diag = np.sqrt(np.diag(g64) ** 2 + np.diag(b64) ** 2)
         inv_c = 1.0 / float(np.max(y_diag))
         gs, bs = g64 * inv_c, b64 * inv_c
@@ -61,7 +111,7 @@ class NRSmallContext:
         # column-vector operator: [Ir; Ii] = ymat @ [e-1; f]
         self.ymat = np.block([[pad(gs), pad(-bs)], [pad(bs), pad(gs)]])
         # preconditioner: [dth; dnu] = wmat @ [fP; fQ]
-        w = grid.j0_inv.detach().cpu().double().numpy() / inv_c
+        w = _np64(grid.j0_inv) / inv_c
         m = n - 1
         wmat = np.zeros((2 * nb, 2 * nb), np.float64)
         for (r, c), (ro, co) in {(0, 0): (1, 1), (0, 1): (1, nb + 1),
@@ -70,8 +120,8 @@ class NRSmallContext:
             wmat[ro:ro + m, co:co + m] = w[r * m:(r + 1) * m, c * m:(c + 1) * m]
         self.wmat = wmat
         rs = np.zeros((2 * nb, 1), np.float64)
-        rs[:n, 0] = grid.rowsum_g.detach().cpu().double().numpy() * inv_c
-        rs[nb:nb + n, 0] = grid.rowsum_b.detach().cpu().double().numpy() * inv_c
+        rs[:n, 0] = _np64(grid.rowsum_g) * inv_c
+        rs[nb:nb + n, 0] = _np64(grid.rowsum_b) * inv_c
         self.rowsum = rs
         mask = np.zeros((2 * nb, 1), np.float64)
         mask[1:n, 0] = 1.0
@@ -84,14 +134,27 @@ class NRSmallContext:
         self.slack_vm = float(grid.slack_vm)
         self._tensors = {}
 
-    def tensors(self, dtype, device):
-        """(ymat, wmat, rowsum, mask) as contiguous tensors, cached."""
-        key = (dtype, str(device))
-        if key not in self._tensors:
-            self._tensors[key] = tuple(
-                torch.as_tensor(a, device=device).to(dtype).contiguous()
-                for a in (self.ymat, self.wmat, self.rowsum, self.mask))
-        return self._tensors[key]
+    def pack(self, p_inj, q_inj, vm0, va0, dtype):
+        """Injections and start voltages -> (2nb, lanes) spec and v0
+        (padded buses at flat 1+0j)."""
+        n, nb = self.n, self.nb
+        p = p_inj.reshape(-1, n).to(dtype)
+        q = q_inj.reshape(-1, n).to(dtype)
+        lanes = p.shape[0]
+        kw = dict(dtype=dtype, device=p.device)
+        spec = torch.zeros((2 * nb, lanes), **kw)
+        spec[:n] = (p * self.inv_c).T
+        spec[nb:nb + n] = (q * self.inv_c).T
+        vm0, va0 = _start(self, lanes, vm0, va0, kw)
+        v0 = torch.zeros((2 * nb, lanes), **kw)
+        v0[:nb] = 1.0
+        v0[:n] = (vm0 * torch.cos(va0)).T
+        v0[nb:nb + n] = (vm0 * torch.sin(va0)).T
+        return spec, v0
+
+    def unpack(self, v):
+        """(2nb, lanes) solved state -> (e, f), each (lanes, n)."""
+        return v[:self.n].T, v[self.nb:self.nb + self.n].T
 
 
 def _grid_fingerprint(grid):
@@ -100,55 +163,105 @@ def _grid_fingerprint(grid):
     grid's operators)."""
     h = hashlib.sha1()
     for t in (grid.g_mat, grid.b_mat, grid.j0_inv, grid.rowsum_g, grid.rowsum_b):
-        a = np.ascontiguousarray(t.detach().cpu().double().numpy())
+        a = np.ascontiguousarray(_np64(t))
         h.update(a.tobytes())
         h.update(repr(a.shape).encode())
     h.update(repr((grid.name, int(grid.n_bus), float(grid.slack_vm))).encode())
     return h.hexdigest()
 
 
-_CTX_SMALL_CACHE = {}
+_CTX_CACHE = {}
+
+
+def _ctx(cls, grid):
+    """The grid's context of class ``cls``, cached by the grid's content."""
+    key = (cls, _grid_fingerprint(grid))
+    if key not in _CTX_CACHE:
+        _CTX_CACHE[key] = cls(grid)
+    return _CTX_CACHE[key]
 
 
 def get_ctx_small(grid) -> NRSmallContext:
-    key = _grid_fingerprint(grid)
-    if key not in _CTX_SMALL_CACHE:
-        _CTX_SMALL_CACHE[key] = NRSmallContext(grid)
-    return _CTX_SMALL_CACHE[key]
+    return _ctx(NRSmallContext, grid)
 
 
-def _pack(ctx, p_inj, q_inj, vm0, va0, dtype):
-    """Injections and start voltages -> (2nb, lanes) spec and v0 (padded
-    buses at flat 1+0j)."""
-    n, nb = ctx.n, ctx.nb
-    p = p_inj.reshape(-1, n).to(dtype)
-    q = q_inj.reshape(-1, n).to(dtype)
-    lanes = p.shape[0]
-    kw = dict(dtype=dtype, device=p.device)
-    spec = torch.zeros((2 * nb, lanes), **kw)
-    spec[:n] = (p * ctx.inv_c).T
-    spec[nb:nb + n] = (q * ctx.inv_c).T
-    if vm0 is None:
-        vm0 = torch.ones((lanes, n), **kw)
-        vm0[:, 0] = ctx.slack_vm
-    vm0 = vm0.reshape(-1, n).to(dtype)
-    va0 = (torch.zeros((lanes, n), **kw) if va0 is None
-           else va0.reshape(-1, n).to(dtype))
-    v0 = torch.zeros((2 * nb, lanes), **kw)
-    v0[:nb] = 1.0
-    v0[:n] = (vm0 * torch.cos(va0)).T
-    v0[nb:nb + n] = (vm0 * torch.sin(va0)).T
-    return spec, v0
+class NRContext(_PackedOperands):
+    """Y-normalized, padded, packed operands of one grid for the large
+    kernel (numpy float64), lanes-major: ``[e-1, f] @ ypack -> [Ir, Ii]``
+    and ``[fP, fQ] @ wpack -> [dtheta, dnu]``.  ``ypack``/``wpack`` are
+    ``(2npad, 2npad)``, ``rowsum``/``mask`` ``(1, 2npad)``; the float32
+    casts of these arrays are the JAX package's ``PallasNRContext``
+    operands bit for bit."""
+
+    _OPERANDS = ("ypack", "wpack", "rowsum", "mask")
+
+    def __init__(self, grid):
+        n = grid.n_bus
+        npad = _npad(n)
+        g64, b64 = _np64(grid.g_mat), _np64(grid.b_mat)
+        y_diag = np.sqrt(np.diag(g64) ** 2 + np.diag(b64) ** 2)
+        inv_c = 1.0 / float(np.max(y_diag))
+        gs, bs = g64 * inv_c, b64 * inv_c
+
+        def pad(m):
+            out = np.zeros((npad, npad), np.float64)
+            out[:n, :n] = m
+            return out
+
+        # pre-transposed blocks: (x @ G^T)_i = sum_j G[i, j] x_j
+        self.ypack = np.block([[pad(gs.T), pad(bs.T)],
+                               [pad(-bs.T), pad(gs.T)]])
+        w = _np64(grid.j0_inv) / inv_c
+        m = n - 1
+        blk = {}
+        for name, (r, c) in {"tp": (0, 0), "tq": (0, 1),
+                             "np": (1, 0), "nq": (1, 1)}.items():
+            full = np.zeros((npad, npad), np.float64)
+            full[1:n, 1:n] = w[r * m:(r + 1) * m, c * m:(c + 1) * m]
+            blk[name] = full.T
+        self.wpack = np.block([[blk["tp"], blk["np"]],
+                               [blk["tq"], blk["nq"]]])
+        rs = np.zeros((1, 2 * npad), np.float64)
+        rs[0, :n] = _np64(grid.rowsum_g) * inv_c
+        rs[0, npad:npad + n] = _np64(grid.rowsum_b) * inv_c
+        self.rowsum = rs
+        mask = np.zeros((1, 2 * npad), np.float64)
+        mask[0, 1:n] = 1.0
+        mask[0, npad + 1:npad + n] = 1.0
+        self.mask = mask
+
+        self.n = n
+        self.npad = npad
+        self.inv_c = inv_c
+        self.slack_vm = float(grid.slack_vm)
+        self._tensors = {}
+
+    def pack(self, p_inj, q_inj, vm0, va0, dtype):
+        """Injections and start voltages -> (lanes, 2npad) spec and v0
+        (padded buses at flat 1+0j).  Lanes are not padded: the kernel
+        masks its ragged last block itself."""
+        n, npad = self.n, self.npad
+        p = p_inj.reshape(-1, n).to(dtype)
+        q = q_inj.reshape(-1, n).to(dtype)
+        lanes = p.shape[0]
+        kw = dict(dtype=dtype, device=p.device)
+        spec = torch.zeros((lanes, 2 * npad), **kw)
+        spec[:, :n] = p * self.inv_c
+        spec[:, npad:npad + n] = q * self.inv_c
+        vm0, va0 = _start(self, lanes, vm0, va0, kw)
+        v0 = torch.zeros((lanes, 2 * npad), **kw)
+        v0[:, :npad] = 1.0
+        v0[:, :n] = vm0 * torch.cos(va0)
+        v0[:, npad:npad + n] = vm0 * torch.sin(va0)
+        return spec, v0
+
+    def unpack(self, v):
+        """(lanes, 2npad) solved state -> (e, f), each (lanes, n)."""
+        return v[:, :self.n], v[:, self.npad:self.npad + self.n]
 
 
-def _unpack(grid, ctx, v, err, n_iter, tol, batch_shape, dtype):
-    n, nb = ctx.n, ctx.nb
-    e = v[:n].T.to(dtype)
-    f = v[nb:nb + n].T.to(dtype)
-    vm = torch.sqrt(e * e + f * f)
-    va = torch.atan2(f, e)
-    converged = (err < tol) & torch.isfinite(err)
-    return _result(grid, vm, va, converged, n_iter.to(torch.int32), batch_shape)
+def get_ctx(grid) -> NRContext:
+    return _ctx(NRContext, grid)
 
 
 def nr_small_plain(spec, v0, ymat, wmat, rowsum, mask, *, tol, max_iter,
@@ -230,7 +343,7 @@ def nr_small_kernel(spec, v0, ymat, wmat, rowsum, mask, *, tol, max_iter,
     v = torch.empty_like(v0)
     err = torch.empty(lanes, dtype=torch.float32, device=v0.device)
     n_iter = torch.empty(lanes, dtype=torch.int32, device=v0.device)
-    lib = _kernel_lib()
+    lib = _kernel_lib("nr_small")
     rc = lib.nr_small_launch(
         *(a.data_ptr() for a in args), v.data_ptr(), err.data_ptr(),
         n_iter.data_ptr(), lanes, nb, float(tol), int(max_iter),
@@ -244,11 +357,33 @@ def nr_small_kernel(spec, v0, ymat, wmat, rowsum, mask, *, tol, max_iter,
 
 def _solve(core, dtype, grid, ctx, p_inj, q_inj, tol, max_iter, inner_iters,
            vm0, va0):
-    ctx = get_ctx_small(grid) if ctx is None else ctx
-    spec, v0 = _pack(ctx, p_inj, q_inj, vm0, va0, dtype)
+    """Pack, run ``core`` on the context's operands, unpack to a PFResult in
+    the input's dtype."""
+    spec, v0 = ctx.pack(p_inj, q_inj, vm0, va0, dtype)
     v, err, n_iter = core(spec, v0, *ctx.tensors(dtype, p_inj.device), tol=tol,
                           max_iter=max_iter, inner_iters=inner_iters)
-    return _unpack(grid, ctx, v, err, n_iter, tol, p_inj.shape[:-1], p_inj.dtype)
+    e, f = (x.to(p_inj.dtype) for x in ctx.unpack(v))
+    vm = torch.sqrt(e * e + f * f)
+    va = torch.atan2(f, e)
+    converged = (err < tol) & torch.isfinite(err)
+    return _result(grid, vm, va, converged, n_iter.to(torch.int32),
+                   p_inj.shape[:-1])
+
+
+def _dispatch(name, kernel, plain, ctx_of, grid, p_inj, q_inj, tol, max_iter,
+              inner_iters, vm0, va0, ctx):
+    """CPU tensors take the plain version in their dtype; CUDA tensors the
+    kernel in float32 (or its wrapper raises); other devices raise."""
+    ctx = ctx_of(grid) if ctx is None else ctx
+    dev = p_inj.device.type
+    if dev == "cpu":
+        core, dtype = plain, p_inj.dtype
+    elif dev == "cuda":
+        core, dtype = kernel, torch.float32
+    else:
+        raise ValueError(f"{name}: unsupported device {p_inj.device}")
+    return _solve(core, dtype, grid, ctx, p_inj, q_inj, tol, max_iter,
+                  inner_iters, vm0, va0)
 
 
 def nr_solve_small_ref(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,
@@ -256,6 +391,7 @@ def nr_solve_small_ref(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,
     """Batched NR solve of ``(..., n_bus)`` injections through the plain
     version :func:`nr_small_plain`, in the input's dtype.  ``ctx`` is the
     grid's :class:`NRSmallContext`, looked up by content when not given."""
+    ctx = get_ctx_small(grid) if ctx is None else ctx
     return _solve(nr_small_plain, p_inj.dtype, grid, ctx, p_inj, q_inj, tol,
                   max_iter, inner_iters, vm0, va0)
 
@@ -264,54 +400,138 @@ def nr_solve_small(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,
                    inner_iters=3, vm0=None, va0=None, ctx=None):
     """Batched NR solve of ``(..., n_bus)`` injections through the CUDA
     kernel (float32 inside, result cast back to the input's dtype).  CPU
-    tensors take :func:`nr_solve_small_ref`; CUDA tensors launch the kernel
-    or raise.  ``ctx`` as in :func:`nr_solve_small_ref`."""
-    if p_inj.device.type == "cpu":
-        return nr_solve_small_ref(grid, p_inj, q_inj, tol=tol,
-                                  max_iter=max_iter, inner_iters=inner_iters,
-                                  vm0=vm0, va0=va0, ctx=ctx)
-    if p_inj.device.type != "cuda":
-        raise ValueError(f"nr_solve_small: unsupported device {p_inj.device}")
-    return _solve(nr_small_kernel, torch.float32, grid, ctx, p_inj, q_inj, tol,
-                  max_iter, inner_iters, vm0, va0)
+    tensors take :func:`nr_small_plain`; CUDA tensors launch the kernel or
+    raise.  ``ctx`` as in :func:`nr_solve_small_ref`."""
+    return _dispatch("nr_solve_small", nr_small_kernel, nr_small_plain,
+                     get_ctx_small, grid, p_inj, q_inj, tol, max_iter,
+                     inner_iters, vm0, va0, ctx)
 
 
 nr_solve_small.launches = 0
 
 
-def _kernel_lib():
-    lib = cuda_build.load("nr_small")
+def _kernel_lib(name):
+    lib = cuda_build.load(name)
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.nr_small_launch.argtypes = [P] * 9 + [I, I, ctypes.c_float, I, I, P]
-        lib.nr_small_launch.restype = I
-        lib.nr_small_error_string.argtypes = [I]
-        lib.nr_small_error_string.restype = ctypes.c_char_p
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = [P] * 9 + [I, I, ctypes.c_float, I, I, P]
+        launch.restype = I
+        errstr = getattr(lib, f"{name}_error_string")
+        errstr.argtypes = [I]
+        errstr.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def nr_large_plain(spec, v0, ypack, wpack, rowsum, mask, *, tol, max_iter,
+                   inner_iters):
+    """Plain PyTorch version of the large kernel, on the kernel's own
+    operands: packed ``(lanes, 2npad)`` ``spec``/``v0``, the context's
+    ``(2npad, 2npad)`` operators and ``(1, 2npad)`` rowsum and mask.
+    Returns ``(v, err, n_iter)`` as the kernel does.
+
+    ``_nr_kernel`` computes the function of ``_nr_kernel_small`` in the
+    transposed layout (``ypack`` is the small kernel's operator transposed,
+    with other padding), so this runs :func:`nr_small_plain` on transposed
+    views."""
+    v, err, n_iter = nr_small_plain(spec.T, v0.T, ypack.T, wpack.T, rowsum.T,
+                                    mask.T, tol=tol, max_iter=max_iter,
+                                    inner_iters=inner_iters)
+    return v.T, err, n_iter
+
+
+def _check_npad(name, npad):
+    if npad not in LARGE_NPADS:
+        raise ValueError(f"{name}: npad={npad}; the large kernel holds "
+                         f"npad in {LARGE_NPADS}")
+
+
+def nr_large_kernel(spec, v0, ypack, wpack, rowsum, mask, *, tol, max_iter,
+                    inner_iters):
+    """One launch of the CUDA kernel ``csrc/nr_large.cu`` on packed float32
+    operands on the card (see :func:`nr_large_plain`); raises if the launch
+    fails.  This is the kernel's only launch site, and it counts each
+    launch in ``nr_solve_large.launches``."""
+    lanes, npad = spec.shape[0], spec.shape[1] // 2
+    args = (spec, v0, ypack, wpack, rowsum, mask)
+    _check_npad("nr_large_kernel", npad)
+    for a in args:
+        if a.device.type != "cuda" or a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError("nr_large_kernel: operands must be contiguous "
+                             "float32 CUDA tensors")
+    v = torch.empty_like(v0)
+    err = torch.empty(lanes, dtype=torch.float32, device=v0.device)
+    n_iter = torch.empty(lanes, dtype=torch.int32, device=v0.device)
+    lib = _kernel_lib("nr_large")
+    rc = lib.nr_large_launch(
+        *(a.data_ptr() for a in args), v.data_ptr(), err.data_ptr(),
+        n_iter.data_ptr(), lanes, npad, float(tol), int(max_iter),
+        int(inner_iters), torch.cuda.current_stream(v0.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("nr_large kernel launch failed: "
+                           + lib.nr_large_error_string(rc).decode())
+    nr_solve_large.launches += 1
+    return v, err, n_iter
+
+
+def nr_solve_large_ref(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,
+                       inner_iters=3, vm0=None, va0=None, ctx=None):
+    """Batched NR solve of ``(..., n_bus)`` injections through the plain
+    version :func:`nr_large_plain`, in the input's dtype.  ``ctx`` is the
+    grid's :class:`NRContext`, looked up by content when not given."""
+    ctx = get_ctx(grid) if ctx is None else ctx
+    return _solve(nr_large_plain, p_inj.dtype, grid, ctx, p_inj, q_inj, tol,
+                  max_iter, inner_iters, vm0, va0)
+
+
+def nr_solve_large(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,
+                   inner_iters=3, vm0=None, va0=None, ctx=None):
+    """Batched NR solve of ``(..., n_bus)`` injections through the large
+    CUDA kernel (float32 inside, result cast back to the input's dtype).
+    CPU tensors take :func:`nr_large_plain`; CUDA tensors launch the kernel
+    or raise.  ``ctx`` as in :func:`nr_solve_large_ref`."""
+    return _dispatch("nr_solve_large", nr_large_kernel, nr_large_plain,
+                     get_ctx, grid, p_inj, q_inj, tol, max_iter, inner_iters,
+                     vm0, va0, ctx)
+
+
+nr_solve_large.launches = 0
 
 
 def make_solver(grid, *, backend="auto", tol=1e-7, max_iter=20, inner_iters=3):
     """Batched solver ``solve(p, q, vm0, va0) -> PFResult`` for one grid,
     chosen by configuration, never by failure:
 
-    * ``"auto"``: the kernel path (:func:`nr_solve_small`) for grids with
-      n_bus <= 64, the torch-op :func:`nr_solve` above that (the large-grid
-      kernel is not ported yet);
-    * ``"kernel"``: always :func:`nr_solve_small`;
+    * ``"auto"``: the small kernel's path (:func:`nr_solve_small`) for
+      grids with n_bus <= 64, the large kernel's (:func:`nr_solve_large`)
+      for n_bus > 200 (the JAX package's own rule), the torch-op
+      :func:`nr_solve` in between (case69, case141);
+    * ``"kernel"``: the small kernel's path for n_bus <= 64, the large
+      kernel's above (as the JAX package's forced ``"pallas"``);
     * ``"torch"``: always :func:`nr_solve`.
 
-    The kernel path takes its plain version for CPU tensors.  Unlike the
-    JAX package's ``"auto"`` (XLA for n_bus <= 200), case33 runs the kernel.
+    The kernel paths take their plain versions for CPU tensors.  Unlike the
+    JAX package's ``"auto"`` (XLA for n_bus <= 200), case33 runs a kernel.
+    A grid off the CPU that the large kernel cannot hold (npad above
+    ``LARGE_NPADS``) raises here, when the solver is built, not at its
+    first solve.
     """
     if backend not in ("auto", "kernel", "torch"):
         raise ValueError(f"unknown pf backend '{backend}'")
     kw = dict(tol=tol, max_iter=max_iter, inner_iters=inner_iters)
-    if backend == "kernel" or (backend == "auto" and grid.n_bus <= SMALL_NB):
-        # the context is resolved here, once: its content key reads the
-        # grid's operators back to the host, which must not happen per solve
+    n = grid.n_bus
+    # each context is resolved here, once: its content key reads the grid's
+    # operators back to the host, which must not happen per solve
+    if backend != "torch" and n <= SMALL_NB:
         ctx = get_ctx_small(grid)
         return lambda p, q, vm0=None, va0=None: nr_solve_small(
+            grid, p, q, vm0=vm0, va0=va0, ctx=ctx, **kw)
+    if backend == "kernel" or (backend == "auto" and n > LARGE_MIN_BUS):
+        if grid.device.type != "cpu":
+            _check_npad("make_solver", _npad(n))
+        ctx = get_ctx(grid)
+        return lambda p, q, vm0=None, va0=None: nr_solve_large(
             grid, p, q, vm0=vm0, va0=va0, ctx=ctx, **kw)
     ops = packed_operators(grid)
     return lambda p, q, vm0=None, va0=None: nr_solve(

@@ -45,22 +45,32 @@ def _lib_path(name):
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
 
 
-def build(name):
-    """Compile the kernel ``csrc/<name>.cu`` unless it is built already;
-    raise with the compiler's output if it fails."""
-    src, out = _lib_path(name)
-    if os.path.exists(out):
-        return
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, src],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": proc.stdout}
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build failed: {name} (nvcc exit "
-                           f"{proc.returncode})\n{proc.stdout}")
-    os.replace(tmp, out)
+def build(*names):
+    """Compile the kernels ``csrc/<name>.cu`` that are not built yet, one
+    ``nvcc`` process per source, all started together; raise with the
+    compiler's output if any fails."""
+    jobs = []
+    for name in names:
+        src, out = _lib_path(name)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([_nvcc(), *FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, tmp, out, proc, time.perf_counter()))
+    failed = []
+    for name, tmp, out, proc, t0 in jobs:
+        log = proc.communicate()[0]
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if proc.returncode != 0:
+            failed.append(f"CUDA kernel build failed: {name} (nvcc exit "
+                          f"{proc.returncode})\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name):

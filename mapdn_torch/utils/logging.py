@@ -1,0 +1,52 @@
+"""Metrics logging: metrics.jsonl always, tensorboard scalars when available
+(port of mapdn_tpu/utils/logging.py).
+
+Mirrors the reference's logging surface (reference trainer.py:115-117 logs
+every stat under 'data/<name>'; train.py:92,107-111 dumps the config to
+log.txt).  Tensorboard scalars are written only where
+``torch.utils.tensorboard`` imports (it needs the ``tensorboard`` package);
+that is a choice of output, not of device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+
+class MetricsLogger:
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        os.makedirs(log_dir, exist_ok=True)
+        self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            self._tb = None
+        else:
+            self._tb = SummaryWriter(log_dir)
+
+    def log(self, stats: dict, step: int):
+        rec = {"step": step, "time": time.time(), **stats}
+        self._jsonl.write(json.dumps(rec) + "\n")
+        self._jsonl.flush()
+        if self._tb is not None:
+            for k, v in stats.items():
+                # reference tag scheme 'data/<stat>' (trainer.py:115-117)
+                self._tb.add_scalar("data/" + k, v, step)
+
+    def log_config(self, alg_config, env_config):
+        """Config dump (reference train.py:107-111 log.txt)."""
+        with open(os.path.join(self.log_dir, "log.txt"), "w") as f:
+            f.write("alg_params:\n")
+            for k, v in sorted(dataclasses.asdict(alg_config).items()):
+                f.write(f"\t{k}: {v}\n")
+            f.write("env_params:\n")
+            for k, v in sorted(env_config.items()):
+                f.write(f"\t{k}: {v}\n")
+
+    def close(self):
+        self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()

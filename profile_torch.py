@@ -1,10 +1,13 @@
 #!/usr/bin/env python
 """Where the time of one training chunk of the PyTorch port goes, on the GPU.
 
-    python3 profile_torch.py [--out build/profile_chunk.txt]
+    python3 profile_torch.py [--case case33|case322] [--out build/profile_chunk.txt]
 
-Builds the trainer of chip_smoke.py (the bench.py configuration: MAPPO on
-case33, 8192 lanes), runs one warm-up chunk, and then:
+Builds a trainer of chip_smoke.py: for case33 (the default) the bench.py
+configuration, MAPPO on case33 at 8192 lanes in 60-step chunks; for case322
+the trainer ``mapdn_torch.train`` builds from the flags of
+train_case322.sh at 4096 lanes, whose chunk is the whole 240-step episode.
+It runs one warm-up chunk, and then:
 
 1. ``split``: one chunk timed on the host clock, span by span (each span
    closed by a ``torch.cuda.synchronize()``): the 60 rollout steps and,
@@ -26,7 +29,7 @@ import time
 
 import torch
 
-from chip_smoke import bench_trainer
+from chip_smoke import bench_trainer, case322_flags
 
 
 def _timed(spans, name, fn):
@@ -42,6 +45,7 @@ def _timed(spans, name, fn):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--case", choices=("case33", "case322"), default="case33")
     ap.add_argument("--out", default=os.path.join("build", "profile_chunk.txt"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -49,7 +53,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    trainer = bench_trainer()
+    if args.case == "case33":
+        trainer = bench_trainer()
+    else:
+        from mapdn_torch import train
+        _, _, trainer = train.build_trainer(train.parse_args(case322_flags()))
     trainer.carry, _ = trainer._train_chunk(trainer.carry)
     torch.cuda.synchronize()
 
@@ -73,7 +81,7 @@ def main():
     wall = time.perf_counter() - t0
     (trainer._rollout_step, trainer._fill_ring_values, trainer._update_phase,
      env._solver, env.batched_auto_reset_step, model.get_actions) = saved
-    print("[split] " + json.dumps({"chunk_ms": wall * 1e3,
+    print("[split] " + json.dumps({"case": args.case, "chunk_ms": wall * 1e3,
                                    **{k + "_ms": v * 1e3 for k, v in sorted(spans.items())}}),
           flush=True)
 
@@ -95,7 +103,7 @@ def main():
     busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print("[profile] " + json.dumps({
-        "chunk_ms": wall * 1e3, "device_busy_ms": busy_ms,
+        "case": args.case, "chunk_ms": wall * 1e3, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
         "kernel_launches": sum(v[1] for v in by_name.values()),
         "top": [{"name": k[:80], "ms": v[0], "count": v[1],

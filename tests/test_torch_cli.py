@@ -1,0 +1,206 @@
+"""mapdn_torch's checkpoints and training CLI on the CPU: the checkpoint
+round trip, kill-and-resume, generations and 9-digit names of
+tests/test_subsystems.py ported to ``torch.save``, and
+``mapdn_torch.train.main`` end to end at case33."""
+import dataclasses
+import json
+import math
+import os
+
+import pytest
+import torch
+from threadpoolctl import threadpool_limits
+
+from mapdn_torch import train
+from mapdn_torch.algos import MAPPO
+from mapdn_torch.envs import EnvConfig, make_env
+from mapdn_torch.learn.trainer import PGTrainer
+from mapdn_torch.utils.checkpoint import (
+    load_model, restore_checkpoint, save_checkpoint, save_model)
+from mapdn_torch.utils.config import load_config
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    # numpy's OpenBLAS spins 8 threads in each of Tier-1's 6 xdist workers
+    # on 8 cores; one thread a worker keeps the workers from stalling each
+    # other (the port's files ran about 5x faster so)
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
+
+def _tiny_trainer(seed=0):
+    env = make_env("case33", EnvConfig(episode_limit=8), days=8,
+                   dtype=torch.float32, device="cpu")
+    info = env.get_env_info()
+    cfg, _ = load_config("mappo")
+    cfg = cfg.replace(
+        agent_num=info["n_agents"], obs_size=info["obs_shape"],
+        action_dim=info["n_actions"], max_steps=8, behaviour_update_freq=4,
+        batch_size=4, value_update_epochs=1, policy_update_epochs=1,
+        replay_buffer_size=64, n_envs=2, num_eval_episodes=2, hid_size=32)
+    model = MAPPO(cfg, device="cpu")
+    return env, model, cfg, PGTrainer(cfg, model, env).setup(seed=seed)
+
+
+def _carry_tensors(carry):
+    """Every tensor of a carry, by name, and its host-side counters."""
+    out = {f"env_state.{f.name}": getattr(carry.env_state, f.name)
+           for f in dataclasses.fields(carry.env_state)}
+    out.update(obs=carry.obs, last_hid=carry.last_hid,
+               generator=carry.generator.get_state())
+    for name in ("policy", "value", "target_policy", "target_value"):
+        for k, v in getattr(carry.algo, name).state_dict().items():
+            out[f"algo.{name}.{k}"] = v
+    for name in ("policy_opt", "value_opt"):
+        for i, v in enumerate(getattr(carry.algo, name)):
+            out[f"algo.{name}.{i}"] = v
+    for f in dataclasses.fields(carry.replay.data):
+        out[f"replay.{f.name}"] = getattr(carry.replay.data, f.name)
+    return out, (carry.replay.ptr, carry.replay.size, carry.steps)
+
+
+def _assert_carries_equal(a, b):
+    ta, ca = _carry_tensors(a)
+    tb, cb = _carry_tensors(b)
+    assert ca == cb and set(ta) == set(tb)
+    for k in ta:
+        torch.testing.assert_close(ta[k], tb[k], rtol=0, atol=0, msg=k)
+
+
+def test_checkpoint_roundtrip(tmp_path):
+    env, model, cfg, trainer = _tiny_trainer()
+    trainer.run_episode()
+
+    mpath = str(tmp_path / "model.pt")
+    save_model(mpath, trainer.carry.algo)
+    restored = load_model(mpath, model.init_state(torch.Generator().manual_seed(123)))
+    for name in ("policy", "value", "target_policy", "target_value"):
+        for a, b in zip(getattr(trainer.carry.algo, name).parameters(),
+                        getattr(restored, name).parameters()):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    cpath = str(tmp_path / "ckpt")
+    save_checkpoint(cpath, trainer.carry, trainer.steps, trainer.episodes)
+    carry2, steps, episodes = restore_checkpoint(cpath, trainer.carry)
+    assert steps == trainer.steps and episodes == trainer.episodes
+    _assert_carries_equal(carry2, trainer.carry)
+    # the restored state continues training
+    trainer.carry = carry2
+    stats = trainer.run_episode()
+    assert math.isfinite(stats["mean_train_reward"])
+    assert "mean_train_policy_loss" in stats
+
+
+def test_kill_and_resume_matches_unkilled_run(tmp_path):
+    """Train 3 episodes and checkpoint; a fresh trainer (another seed, as a
+    new process after a kill) restores and trains 3 more: counters, stats
+    and the whole carry match a straight 6-episode run bit for bit."""
+    cdir = str(tmp_path / "ckpt")
+    env, model, cfg, t_a = _tiny_trainer()
+    for _ in range(3):
+        t_a.run_episode()
+    save_checkpoint(cdir, t_a.carry, t_a.steps, t_a.episodes)
+    stats_a = [t_a.run_episode() for _ in range(3)]
+    eval_a = t_a.evaluate()
+
+    t_b = PGTrainer(cfg, model, env).setup(seed=99)
+    carry, steps, episodes = restore_checkpoint(cdir, t_b.carry)
+    t_b.carry, t_b.steps, t_b.episodes = carry, steps, episodes
+    assert episodes == 3 and steps == t_a.steps - 3 * cfg.max_steps
+    stats_b = [t_b.run_episode() for _ in range(3)]
+    eval_b = t_b.evaluate()
+
+    assert t_b.episodes == t_a.episodes and t_b.steps == t_a.steps
+    assert stats_a == stats_b and eval_a == eval_b
+    _assert_carries_equal(t_a.carry, t_b.carry)
+
+
+def test_checkpoint_keeps_two_generations(tmp_path):
+    """save_checkpoint prunes to the newest `keep` generations and restore
+    picks the newest, falling back past a corrupt one."""
+    cdir = str(tmp_path / "gens")
+    _, _, _, trainer = _tiny_trainer()
+    for ep in (1, 2, 3):
+        save_checkpoint(cdir, trainer.carry, ep * 8, ep)
+    assert sorted(os.listdir(cdir)) == ["ckpt_00000002", "ckpt_00000003"]
+    _, steps, episodes = restore_checkpoint(cdir, trainer.carry)
+    assert (steps, episodes) == (24, 3)
+
+    with open(os.path.join(cdir, "ckpt_00000003"), "wb") as fh:
+        fh.write(b"truncated")
+    _, steps, episodes = restore_checkpoint(cdir, trainer.carry)
+    assert (steps, episodes) == (16, 2)
+    # a temporary file left by a crash mid-write is neither counted nor read
+    open(os.path.join(cdir, "ckpt_00000004.tmp.1"), "wb").close()
+    _, steps, episodes = restore_checkpoint(cdir, trainer.carry)
+    assert (steps, episodes) == (16, 2)
+    save_checkpoint(cdir, trainer.carry, 40, 5)
+    assert sorted(os.listdir(cdir)) == ["ckpt_00000003", "ckpt_00000005"]
+
+
+def test_checkpoint_nine_digit_generations(tmp_path):
+    """Past 1e8 episodes the zero padding overflows to 9-digit names:
+    pruning still counts them and restore ranks them numerically."""
+    cdir = str(tmp_path / "gens9")
+    _, _, _, trainer = _tiny_trainer()
+    for ep in (99_999_998, 99_999_999, 100_000_000):
+        save_checkpoint(cdir, trainer.carry, ep * 2, ep)
+    assert set(os.listdir(cdir)) == {"ckpt_99999999", "ckpt_100000000"}
+    _, steps, episodes = restore_checkpoint(cdir, trainer.carry)
+    assert (steps, episodes) == (200_000_000, 100_000_000)
+
+
+FLAGS = ["--platform", "cpu", "--alg", "mappo", "--scenario", "case33_3min_final",
+         "--n-envs", "4", "--max-steps", "10"]
+LOG_NAME = "var_voltage_control-case33_3min_final-distributed-mappo-l1"
+
+
+def _records(save_path):
+    with open(os.path.join(save_path, "tensorboard", LOG_NAME, "metrics.jsonl")) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def test_cli_layout_logs_and_resume(tmp_path):
+    """Two episodes, then --resume to a third: the layout of train.py, the
+    logs, the final save, and a resumed stat stream equal to an unkilled
+    three-episode run's."""
+    killed, straight = str(tmp_path / "killed"), str(tmp_path / "straight")
+    first = train.main(FLAGS + ["--episodes", "2", "--save-path", killed])
+    model_dir = os.path.join(killed, "model_save", LOG_NAME)
+    assert first["model_dir"] == os.path.join(killed + "/", "model_save", LOG_NAME)
+    assert os.path.isfile(os.path.join(model_dir, "model.pt"))
+    assert os.listdir(os.path.join(model_dir, "checkpoint")) == ["ckpt_00000002"]
+    with open(os.path.join(killed, "tensorboard", LOG_NAME, "log.txt")) as fh:
+        text = fh.read()
+    assert "alg_params:" in text and "\tn_envs: 4" in text and "env_params:" in text
+    recs = _records(killed)
+    assert [r["step"] for r in recs] == [1, 2]
+    assert any(k.startswith("mean_test_") for k in recs[0])      # eval at episode 0
+    assert not any(k.startswith("mean_test_") for k in recs[1])
+    assert all(math.isfinite(v) for r in recs for v in r.values())
+
+    resumed = train.main(FLAGS + ["--episodes", "3", "--resume", "--save-path", killed])
+    assert resumed["start_episode"] == 2 and resumed["episodes"] == 3
+    unkilled = train.main(FLAGS + ["--episodes", "3", "--save-path", straight])
+    drop_time = lambda rs: [{k: v for k, v in r.items() if k != "time"} for r in rs]
+    assert drop_time(_records(killed)) == drop_time(_records(straight))
+    assert resumed["final_policy_param_l1"] == unkilled["final_policy_param_l1"]
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--alg", "maddpg"], "A7"),
+    (["--alg", "mappo", "--distributed"], "A12"),
+    (["--alg", "mappo", "--data-path", "/nonexistent"], "CSV datasets"),
+])
+def test_cli_refuses_what_is_not_ported(tmp_path, flags, match):
+    with pytest.raises(NotImplementedError, match=match):
+        train.main(["--platform", "cpu", "--save-path", str(tmp_path)] + flags)
+
+
+def test_cli_runs_on_the_gpu_unless_asked(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--alg", "mappo", "--save-path", str(tmp_path)])

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from mapdn_torch.envs import EnvConfig, make_env
 from mapdn_torch.envs.voltage_control import EnvState
@@ -18,6 +19,15 @@ from mapdn_tpu.envs import EnvConfig as JaxEnvConfig
 from mapdn_tpu.envs import make_env as jax_make_env
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    # numpy's OpenBLAS spins 8 threads in each of Tier-1's 6 xdist workers
+    # on 8 cores; one thread a worker keeps the workers from stalling each
+    # other (the port's files ran about 5x faster so)
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 
 def _to_torch_state(js):
@@ -189,3 +199,33 @@ def test_task_mode_shapes_match_jax(mode):
     np.testing.assert_allclose(sgen[0].numpy(), np.asarray(jsgen))
     out = tenv.step(state, sgen, torch.Generator().manual_seed(1))
     assert out.obs.shape == obs.shape and bool(torch.isfinite(out.reward).all())
+
+
+@pytest.fixture(scope="module")
+def envs322():
+    """case322, distributed mode, bowl barrier (train_case322.sh)."""
+    cfg = dict(episode_limit=3, voltage_barrier_type="bowl")
+    jenv = jax_make_env("case322", JaxEnvConfig(**cfg), days=8, dtype=jnp.float64)
+    jstates, _, _ = jax.jit(jax.vmap(jenv.reset))(jax.random.split(jax.random.PRNGKey(7), 4))
+    return jenv, cfg, jstates
+
+
+@pytest.mark.parametrize("backend", ["torch", "auto"])
+def test_batched_step_case322_matches_jax_vmap(envs322, backend):
+    """A 4-lane step at case322 against the JAX env's vmap step (its solver
+    on the CPU is the XLA nr_solve), the same noise handed to both.
+    'torch' is the torch-op nr_solve; 'auto' is the large kernel's path,
+    here its plain version in float64 on the padded packed operands: the
+    same algorithm, so both hold the float64 tolerance of the case33 test
+    (rtol 1e-9, atol 1e-10)."""
+    jenv, cfg, jstates = envs322
+    tenv = make_env("case322", EnvConfig(**cfg, pf_backend=backend), days=8,
+                    dtype=torch.float64, device="cpu")
+    lanes = 4
+    acts = np.random.RandomState(0).uniform(-0.8, 0.8, (lanes, jenv.grid.n_sgen))
+    keys = jax.random.split(jax.random.PRNGKey(8), lanes)
+    jout = jax.jit(jax.vmap(jenv.step))(jstates, jnp.asarray(acts), keys)
+    tout = tenv.step(_to_torch_state(jstates), torch.tensor(acts),
+                     noise=_step_noise(jenv, keys))
+    assert bool(jout.state.vm.shape[-1] == 322) and not bool(tout.terminated.any())
+    _assert_out_close(tout, jout)

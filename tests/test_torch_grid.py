@@ -5,6 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from mapdn_torch.grid import make_case as torch_case
 from mapdn_torch.pf.fused_nr import NRSmallContext
@@ -12,6 +13,16 @@ from mapdn_tpu.grid import make_case as jax_case
 from mapdn_tpu.pf.pallas_nr import PallasNRSmallContext
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    # numpy's OpenBLAS spins 8 threads in each of Tier-1's 6 xdist workers
+    # on 8 cores; one thread a worker keeps the workers from stalling each
+    # other (the port's files ran about 5x faster so)
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
 
 CASES = ["case33", "case69", "case141", "case322"]
 

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from mapdn_torch import convert
 from mapdn_torch.algos import MAPPO
@@ -23,6 +24,16 @@ from mapdn_tpu.nets import critics as jax_critics
 from mapdn_tpu.utils.config import load_config as jax_load_config
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    # numpy's OpenBLAS spins 8 threads in each of Tier-1's 6 xdist workers
+    # on 8 cores; one thread a worker keeps the workers from stalling each
+    # other (the port's files ran about 5x faster so)
+    with threadpool_limits(1, user_api="blas"):
+        yield
+
 
 N, OBS, HID = 3, 5, 8
 OVERRIDES = dict(agent_num=N, obs_size=OBS, action_dim=1, hid_size=HID)

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from mapdn_torch.grid import make_case as torch_case
 from mapdn_torch.pf.fused_nr import make_solver, nr_solve_small, nr_solve_small_ref
@@ -16,6 +17,15 @@ from mapdn_tpu.pf.newton import nr_solve as jax_nr_solve
 from mapdn_tpu.pf.pallas_nr import nr_solve_pallas_small
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_blas_thread():
+    # numpy's OpenBLAS spins 8 threads in each of Tier-1's 6 xdist workers
+    # on 8 cores; one thread a worker keeps the workers from stalling each
+    # other (the port's files ran about 5x faster so)
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 
 def _injections(case, lanes):
