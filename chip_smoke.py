@@ -16,7 +16,9 @@ Phases, each printing one line; any failure exits non-zero:
 4. kernel_large - the large-grid NR kernel (csrc/nr_large.cu) against its
                   plain version on the test points of tests/test_pallas.py at
                   case33, case141 and case322, then the same checks as
-                  `kernel` on 4096 env-like case322 lanes.
+                  `kernel` on 4096 env-like case322 lanes; the kernel's
+                  solver beside the torch-op solver on 4096 env-like case141
+                  lanes.
 5. golden       - the committed 48-step golden trajectory replayed through
                   the env on the card (float32 tolerances of tests/test_env.py).
 6. train        - the case33 path: MAPPO on case33 at 8192 lanes (the
@@ -311,9 +313,9 @@ def phase_kernel_large():
         ctx = get_ctx(grid)
         p, q = test_point_injections(grid, load_p, load_q, lanes)
         spec, v0 = ctx.pack(p, q, None, None, torch.float32)
-        kops = ctx.tensors(torch.float32, p.device)
-        cmp = compare_packed(ctx, fused_nr.nr_large_kernel(spec, v0, *kops, **kw),
-                             fused_nr.nr_large_plain(spec, v0, *kops, **kw), kw["tol"])
+        kres = fused_nr.nr_large_kernel(spec, v0, *ctx.kernel_tensors(p.device), **kw)
+        plain = fused_nr.nr_large_plain(spec, v0, *ctx.tensors(torch.float32, p.device), **kw)
+        cmp = compare_packed(ctx, kres, plain, kw["tol"])
         assert cmp["converged_equal"] and cmp["n_converged"] == lanes, (case, cmp)
         assert cmp["max_n_iter_diff"] <= 1 and cmp["max_abs_err_same_iters"] <= 2e-5, (case, cmp)
         test_points[case] = dict(npad=ctx.npad, **cmp)
@@ -388,31 +390,33 @@ def phase_kernel_large():
                  "plain": cuda_median_ms(lambda: nr_solve_large_ref(grid, p, q, ctx=ctx)),
                  "torch": cuda_median_ms(lambda: nr_solve(grid, p, q, ops=ops))}
     spec, v0 = ctx.pack(p, q, None, None, torch.float32)
-    kops = ctx.tensors(torch.float32, p.device)
+    kops = ctx.kernel_tensors(p.device)
+    pops = ctx.tensors(torch.float32, p.device)
+    plain = fused_nr.nr_large_plain(spec, v0, *pops, **kw)
     kres = fused_nr.nr_large_kernel(spec, v0, *kops, **kw)
-    cmp = compare_packed(ctx, kres, fused_nr.nr_large_plain(spec, v0, *kops, **kw), kw["tol"])
+    cmp = compare_packed(ctx, kres, plain, kw["tol"])
     assert cmp["converged_equal"] and cmp["max_abs_err_same_iters"] <= 2e-5, cmp
     ms = cuda_median_ms(lambda: fused_nr.nr_large_kernel(spec, v0, *kops, **kw))
-    plain_ms = cuda_median_ms(lambda: fused_nr.nr_large_plain(spec, v0, *kops, **kw))
+    plain_ms = cuda_median_ms(lambda: fused_nr.nr_large_plain(spec, v0, *pops, **kw))
+
+    kit = kres[2]
+    inner = kw["inner_iters"]
+    cfg = fused_nr.nr_large_config(ctx)
+    counts = large_kernel_counts(ctx, kit, inner)
 
     # bound of the kernel's function on these inputs, counted as for the
     # small kernel: per lane one mismatch product with Y, per Newton
     # iteration it ran (inner_iters + 1) products with Y and with W, each at
     # 2 flops per nonzero of its operator (case322's packed Y is 0.65 %
-    # full, W 70 %), at the FP32 peak; bytes: spec and v0 read, the
-    # operators, rowsum and mask read once, v, err and n_iter written.  The
-    # kernel runs every product dense on the padded (2npad x 2npad)
-    # operators for all 8 lanes of a block while any of them iterates:
-    # flops_padded
-    kit = kres[2]
+    # full, W 70 %: dense on its live block), at the FP32 peak; bytes: spec
+    # and v0 read, the operators, rowsum and mask read once, v, err and
+    # n_iter written.  What the kernel runs is `gflop_run`
+    # (large_kernel_counts)
     m = 2 * ctx.npad
-    inner = kw["inner_iters"]
     nnz_y, nnz_w = int(np.count_nonzero(ctx.ypack)), int(np.count_nonzero(ctx.wpack))
     lane_iters = float(kit.double().sum())
     flops = 2.0 * (nnz_y * (lanes + (inner + 1) * lane_iters)
                    + nnz_w * (inner + 1) * lane_iters)
-    block_iters = torch.nn.functional.pad(kit, (0, -lanes % 8)).view(-1, 8).amax(1)
-    flops_padded = 2.0 * m * m * 8 * float((1 + 2 * (inner + 1) * block_iters.double()).sum())
     nbytes = 4 * (3 * m * lanes + 2 * m * m + 2 * m + 2 * lanes)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     bound_ms = max(t_ops, t_bytes) * 1e3
@@ -420,21 +424,53 @@ def phase_kernel_large():
     fdiv = {name: float((~res.converged).double().mean())
             for name, res in (("kernel", out), ("plain", ref), ("torch", tor))}
     fdiv["kernel_vs_torch"] = float((~out.converged & tor.converged).double().mean())
+
+    # case141 (npad 256), env-like lanes: the large kernel's solver beside
+    # the torch-op solver that "auto" gives it (recorded; the rule stays)
+    g141, lp141, lq141, pv141 = make_case("case141", dtype=torch.float32, device="cuda")
+    p141, q141 = env_injections(g141, pv141, lp141, lq141, lanes)
+    k141 = make_solver(g141, backend="kernel")
+    ops141 = packed_operators(g141)
+    r141, t141 = k141(p141, q141), nr_solve(g141, p141, q141, ops=ops141)
+    assert bool((r141.converged == t141.converged).all())
+    case141 = {"lanes": lanes, "n_converged": int(r141.converged.sum()),
+               "mean_n_iter": float(r141.n_iter.double().mean()),
+               "kernel_solver_ms": cuda_median_ms(lambda: k141(p141, q141)),
+               "torch_solver_ms": cuda_median_ms(lambda: nr_solve(g141, p141, q141, ops=ops141))}
+
     say("kernel_large", lanes=lanes, test_points=test_points,
         max_abs_err_same_iters=err_same, max_abs_err_all=err_all,
         lanes_one_iter_apart=int((ok & ~same).sum()), max_n_iter_diff=d_it,
         packed=cmp, vm_err_vs_float64=vs64,
         warm_start_zero_iter_share_tol_1e_7=zero_iter,
         mean_n_iter=float(kit.double().mean()),
-        mean_block_iters=float(block_iters.double().mean()),
+        config=cfg, **counts,
         false_divergence=fdiv, ms=ms, plain_ms=plain_ms, solver_ms=solver_ms,
         bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
-        gflop_padded=flops_padded / 1e9, nnz_y=nnz_y, nnz_w=nnz_w,
-        mbytes=nbytes / 1e6)
+        nnz_y=nnz_y, nnz_w=nnz_w, mbytes=nbytes / 1e6, case141=case141)
     return dict(name="nr_large", route="cuda", source="mapdn_torch/csrc/nr_large.cu",
                 replaces="mapdn_tpu/pf/pallas_nr.py:158",
                 max_abs_err=cmp["packed_max_abs_err"], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def large_kernel_counts(ctx, n_iter, inner):
+    """What the large kernel runs on these lanes, computed from the counts
+    (not measured): the iterations of each block (its 8 lanes' largest
+    n_iter: a block iterates while any of its lanes does), the GFLOP it runs
+    (8 lanes a block, Y on its nonzeros, W on its live block), and the
+    operator bytes read from L2 per solve: W's live block once a block for
+    each W product, and Y's compressed arrays once a block."""
+    lanes, npad = n_iter.shape[0], ctx.npad
+    iters = torch.nn.functional.pad(n_iter, (0, -lanes % 8)).view(-1, 8).amax(1).double()
+    lr = ctx.w_live.shape[0]
+    nnz_y = len(ctx.y_vals)
+    w_products = float(((inner + 1) * iters).sum())
+    flops = 2.0 * 8 * (nnz_y * (len(iters) + w_products) + lr * lr * w_products)
+    y_bytes = 4 * (2 * npad + 1) + 8 * nnz_y
+    w_bytes = 4 * lr * lr * w_products
+    return {"mean_block_iters": float(iters.mean()), "gflop_run": flops / 1e9,
+            "l2_operator_gbytes_computed": (w_bytes + len(iters) * y_bytes) / 1e9}
 
 
 def phase_golden():

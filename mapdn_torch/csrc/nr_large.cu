@@ -10,28 +10,28 @@
 //   update     gated polar update v' = vm (1 + dnu) rot(dth)
 //   stop       err = max|F| / s_ref < tol, non-finite err, or max vm^2 > 100
 // with lanes on rows and buses on columns: every state array is
-// (batch, 2 npad) of [real half | imag half], and the (2 npad, 2 npad)
-// operators act by right-multiplication.
+// (batch, 2 npad) of [real half | imag half], and the operators act by
+// right-multiplication.
 //
-// What bounds it on an H100: operations, and in this design the L2 traffic
-// that feeds them.  Per lane and Newton iteration the function needs 8
-// products with the operators; at case322 counted on their nonzeros that is
-// about 3.3 MFLOP (Y is 0.65 % full, W 70 %), against about 9 KB of
-// device-memory traffic per lane for the whole solve, far above the FP32
-// ridge point.  The operators do not fit on chip: each is 768 x 768 float32
-// (2.36 MB) at case322, against 227 KB of shared memory a block, but both
-// fit in the 50 MB L2.  So one block owns 8 lanes for the whole solve, and
-// its per-lane state (v, spec, currents, mismatch, direction: about 30 KB a
-// lane) lives in registers: thread b owns bus b, i.e. columns b and
-// npad + b, of every state vector of its 8 lanes.  Only the matvec input of
-// the 8 lanes goes through shared memory (8 x 2 npad floats, 24.6 KB at
-// npad = 384), read as broadcasts.  Each product streams the operator from
-// L2 row by row, coalesced across the block's threads, and each element
-// loaded feeds 8 FMAs, one per lane.  The products run dense, Y included,
-// for all 8 lanes while any of them iterates: at case322 that is about 3x
-// the operations the nonzeros need, and each block reads the operator once
-// per product, so L2 bandwidth sets the pace.  FP32 FMA throughout: no TF32
-// or bf16 (the TPU kernel's bf16-pass direction matmuls raised false
+// What bounds it on an H100: FP32 operations, and the instructions that
+// feed them.  The operators do not fit in a block's shared memory (each is
+// 768 x 768 float32, 2.36 MB, at case322), so one block of npad threads
+// owns 8 lanes for the whole solve: thread b owns bus b (columns b and
+// npad + b) of every state vector of its 8 lanes, in registers, and only
+// the matvec input of the 8 lanes goes through shared memory (8 x 2 npad
+// floats), read as broadcasts.  Each operator element read feeds 8 FMAs,
+// one per lane.  The operands are taken where the work is:
+//   * Y (0.65 % full at case322) in compressed columns (CSC: row index and
+//     value of each nonzero, rows ascending), copied into shared memory once
+//     a solve; thread b walks columns b and npad + b.
+//   * W only on its live block, the rows and columns [1, n) u [npad + 1,
+//     npad + n), where it is dense: a compact (2m, stride) copy, m = n - 1,
+//     streamed from L2 with each thread keeping kUnroll rows of loads in
+//     flight.  Threads of the slack bus and of padding take no W FMAs.
+// A skipped zero term leaves every finite sum as it was (fmaf(0, x, acc)
+// == acc up to the sign of a zero), and each sum runs over the nonzeros in
+// ascending row order, as the dense product does.  FP32 FMA throughout: no
+// TF32 or bf16 (the TPU kernel's bf16-pass direction matmuls raised false
 // divergence), precise sincosf, IEEE division.
 //
 // Lanes are independent: a finished lane is gated to an exact no-op
@@ -46,7 +46,23 @@
 
 namespace {
 
-constexpr int kLanes = 8;   // lanes per block; each thread holds all 8
+constexpr int kLanes = 8;    // lanes per block; each thread holds all 8
+constexpr int kUnroll = 64;  // W rows of loads in flight a thread
+
+struct Params {
+  const float* spec;
+  const float* v0;
+  const int* y_colptr;    // (2 npad + 1,) CSC column pointers of Y
+  const int2* y_ent;      // (nnz,) {row, float bits of the value}
+  const float* w_live;    // (2m, w_stride)
+  const float* rowsum;
+  const float* mask;
+  float* v_out;
+  float* err_out;
+  int* it_out;
+  int batch, n, nnz, w_stride, max_iter, inner_iters;
+  float tol;
+};
 
 // Per-lane maxima over the block: every thread passes its own values for
 // the 8 lanes and gets the block's maxima back.  `red` is kWarps x kLanes
@@ -76,33 +92,83 @@ __device__ __forceinline__ void block_max(float (&x)[kLanes], float* red) {
   }
 }
 
-// acc_p/acc_q[l] = (x A)[lane l, column b] / [lane l, column NPAD + b], with
-// x the (2 NPAD, kLanes) matvec input in shared memory (sx[k * kLanes + l])
-// and A row-major (2 NPAD, 2 NPAD) in global memory (read through L2).
-template <int NPAD>
-__device__ __forceinline__ void matvec(const float* __restrict__ a,
-                                       const float4* __restrict__ sx4, int b,
-                                       float (&acc_p)[kLanes],
-                                       float (&acc_q)[kLanes]) {
-  constexpr int M = 2 * NPAD;
+// acc[l] += a * x[k][l] for the 8 lanes, x the (2 NPAD, kLanes) matvec
+// input in shared memory
+__device__ __forceinline__ void fma_row(float a, const float4* __restrict__ sx4,
+                                        int k, float (&acc)[kLanes]) {
+  const float4 x0 = sx4[2 * k];
+  const float4 x1 = sx4[2 * k + 1];
+  const float xs[kLanes] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) acc[l] = fmaf(a, xs[l], acc[l]);
+}
+
+__device__ __forceinline__ void fma_row2(float a_p, float a_q,
+                                         const float4* __restrict__ sx4, int k,
+                                         float (&acc_p)[kLanes],
+                                         float (&acc_q)[kLanes]) {
+  const float4 x0 = sx4[2 * k];
+  const float4 x1 = sx4[2 * k + 1];
+  const float xs[kLanes] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
 #pragma unroll
   for (int l = 0; l < kLanes; ++l) {
-    acc_p[l] = 0.f;
-    acc_q[l] = 0.f;
+    acc_p[l] = fmaf(a_p, xs[l], acc_p[l]);
+    acc_q[l] = fmaf(a_q, xs[l], acc_q[l]);
   }
-  const float* col = a + b;
-#pragma unroll 8
-  for (int k = 0; k < M; ++k) {
-    const float a_p = __ldg(col + k * M);
-    const float a_q = __ldg(col + k * M + NPAD);
-    const float4 x0 = sx4[2 * k];
-    const float4 x1 = sx4[2 * k + 1];
-    const float xs[kLanes] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&a)[N]) {
 #pragma unroll
-    for (int l = 0; l < kLanes; ++l) {
-      acc_p[l] = fmaf(a_p, xs[l], acc_p[l]);
-      acc_q[l] = fmaf(a_q, xs[l], acc_q[l]);
-    }
+  for (int i = 0; i < N; ++i) a[i] = 0.f;
+}
+
+// acc_p/acc_q = (x Y)[:, b] / [:, NPAD + b] from Y's compressed columns in
+// shared memory
+template <int NPAD>
+__device__ __forceinline__ void y_product(const int* __restrict__ colptr,
+                                          const int2* __restrict__ ent,
+                                          const float4* __restrict__ sx4, int b,
+                                          float (&acc_p)[kLanes],
+                                          float (&acc_q)[kLanes]) {
+  zero(acc_p);
+  zero(acc_q);
+  for (int j = colptr[b]; j < colptr[b + 1]; ++j) {
+    const int2 e = ent[j];
+    fma_row(__int_as_float(e.y), sx4, e.x, acc_p);
+  }
+  for (int j = colptr[NPAD + b]; j < colptr[NPAD + b + 1]; ++j) {
+    const int2 e = ent[j];
+    fma_row(__int_as_float(e.y), sx4, e.x, acc_q);
+  }
+}
+
+// (x W)[:, b], [:, NPAD + b] from W's live block, streamed from L2 (threads
+// of buses 1 .. m).  The block's layout: (2m, stride) floats.  Row k is the
+// input of bus 1 + k for k < m, of NPAD + 1 + k - m (the imaginary half)
+// for m <= k < 2m; columns (2j, 2j + 1) are the outputs of bus j + 1 (its
+// real and imaginary half), so thread b reads both its coefficients of a
+// row with one 8-byte load.
+template <int NPAD>
+__device__ __forceinline__ void w_product(const float* __restrict__ w,
+                                          int stride, int m, bool wlive,
+                                          const float4* __restrict__ sx4,
+                                          int b, float (&acc_p)[kLanes],
+                                          float (&acc_q)[kLanes]) {
+  zero(acc_p);
+  zero(acc_q);
+  if (!wlive) return;
+  const float2* col = reinterpret_cast<const float2*>(w + 2 * (b - 1));
+  const int s2 = stride / 2;
+#pragma unroll kUnroll
+  for (int k = 0; k < m; ++k) {
+    const float2 a = __ldg(col + k * s2);
+    fma_row2(a.x, a.y, sx4, k + 1, acc_p, acc_q);
+  }
+#pragma unroll kUnroll
+  for (int k = m; k < 2 * m; ++k) {
+    const float2 a = __ldg(col + k * s2);
+    fma_row2(a.x, a.y, sx4, k + NPAD + 1 - m, acc_p, acc_q);
   }
 }
 
@@ -117,52 +183,78 @@ __device__ __forceinline__ void store_x(float4* __restrict__ sx4, int b,
   sx4[2 * (NPAD + b) + 1] = make_float4(q[4], q[5], q[6], q[7]);
 }
 
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// dynamic shared memory: [Y colptr][Y entries]
+__host__ __device__ inline int y_bytes(int npad, int nnz) {
+  return round_up((2 * npad + 1) * 4, 16) + nnz * 8;
+}
+
 template <int NPAD>
-__global__ void __launch_bounds__(NPAD, 1)
-nr_large_kernel(const float* __restrict__ spec, const float* __restrict__ v0,
-                const float* __restrict__ ypack, const float* __restrict__ wpack,
-                const float* __restrict__ rowsum, const float* __restrict__ mask,
-                float* __restrict__ v_out, float* __restrict__ err_out,
-                int* __restrict__ it_out, int batch, float tol, int max_iter,
-                int inner_iters) {
+__global__ void __launch_bounds__(NPAD, 1) nr_large_kernel(const Params p) {
   constexpr int M = 2 * NPAD;
   constexpr int kWarps = NPAD / 32;
+  constexpr unsigned kAll = (1u << kLanes) - 1;
   __shared__ float4 sx4[M * kLanes / 4];       // (M, kLanes) matvec input
   __shared__ float sred[3][kWarps * kLanes];   // per-warp partial maxima
+  __shared__ float s_ref[kLanes];
+  __shared__ int s_niter[kLanes];
+  extern __shared__ __align__(16) unsigned char dyn[];
 
   const int b = threadIdx.x;                  // this thread's bus
   const int row0 = blockIdx.x * kLanes;
-  const float mk_p = mask[b], mk_q = mask[NPAD + b];
-  const float rs_p = rowsum[b], rs_q = rowsum[NPAD + b];
+  const int m = p.n - 1;
+  const bool wlive = b >= 1 && b <= m;
+
+  int* colptr = reinterpret_cast<int*>(dyn);
+  int2* ent = reinterpret_cast<int2*>(dyn + round_up((M + 1) * 4, 16));
+  for (int i = b; i <= M; i += NPAD) colptr[i] = p.y_colptr[i];
+  for (int i = b; i < p.nnz; i += NPAD) ent[i] = p.y_ent[i];
 
   // lanes past the batch run as done flat no-load lanes (not stored)
-  float e[kLanes], f[kLanes], sp[kLanes], sq[kLanes];
-  bool live[kLanes];
+  float e[kLanes], f[kLanes];
+  unsigned done = 0;
 #pragma unroll
   for (int l = 0; l < kLanes; ++l) {
     const long r = row0 + l;
-    live[l] = r < batch;
-    e[l] = live[l] ? v0[r * M + b] : 1.f;
-    f[l] = live[l] ? v0[r * M + NPAD + b] : 0.f;
-    sp[l] = live[l] ? spec[r * M + b] * mk_p : 0.f;
-    sq[l] = live[l] ? spec[r * M + NPAD + b] * mk_q : 0.f;
+    const bool live = r < p.batch;
+    e[l] = live ? p.v0[r * M + b] : 1.f;
+    f[l] = live ? p.v0[r * M + NPAD + b] : 0.f;
+    done |= live ? 0u : 1u << l;
   }
 
-  // s_ref = max(max |spec|, 1) per lane
-  float s_ref[kLanes];
-#pragma unroll
-  for (int l = 0; l < kLanes; ++l) s_ref[l] = fmaxf(fabsf(sp[l]), fabsf(sq[l]));
-  block_max<NPAD>(s_ref, sred[0]);
-#pragma unroll
-  for (int l = 0; l < kLanes; ++l) s_ref[l] = fmaxf(s_ref[l], 1.f);
+  // the masked specified injections of lane l at this thread's bus
+  auto spec_at = [&](int l, float& sp, float& sq) {
+    const long r = row0 + l;
+    const bool live = r < p.batch;
+    sp = live ? __ldg(p.spec + r * M + b) * __ldg(p.mask + b) : 0.f;
+    sq = live ? __ldg(p.spec + r * M + NPAD + b) * __ldg(p.mask + NPAD + b) : 0.f;
+  };
 
-  float ir[kLanes], ii[kLanes], fp[kLanes], fq[kLanes];
-  float err[kLanes], vm2max[kLanes];
+  {  // s_ref = max(max |spec|, 1) per lane
+    float sr[kLanes];
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) {
+      float sp, sq;
+      spec_at(l, sp, sq);
+      sr[l] = fmaxf(fabsf(sp), fabsf(sq));
+    }
+    block_max<NPAD>(sr, sred[0]);
+    if (b < kLanes) {
+      s_ref[b] = fmaxf(sr[b], 1.f);
+      s_niter[b] = 0;
+    }
+  }
 
-  // cur = [e-1, f] Y + rowsum; F = (spec - [P, Q]) * mask; err, max vm^2.
-  // Entered after a barrier that orders the last reads of sx and sred.
-  auto mismatch = [&]() {
-    float tp[kLanes], tq[kLanes], nonfinite[kLanes];
+  float ir[kLanes], ii[kLanes], fp[kLanes], fq[kLanes], err[kLanes];
+
+  // cur = [e-1, f] Y + rowsum; F = (spec - [P, Q]) * mask; err; returns the
+  // lanes with max vm^2 > 100.  Entered after a barrier that orders the last
+  // reads of sx and sred.
+  auto mismatch = [&]() -> unsigned {
+    float tp[kLanes], tq[kLanes], nonfinite[kLanes], vm2max[kLanes];
 #pragma unroll
     for (int l = 0; l < kLanes; ++l) {
       tp[l] = e[l] - 1.f;
@@ -170,13 +262,17 @@ nr_large_kernel(const float* __restrict__ spec, const float* __restrict__ v0,
     }
     store_x<NPAD>(sx4, b, tp, tq);
     __syncthreads();
-    matvec<NPAD>(ypack, sx4, b, ir, ii);
+    y_product<NPAD>(colptr, ent, sx4, b, ir, ii);
+    const float mk_p = __ldg(p.mask + b), mk_q = __ldg(p.mask + NPAD + b);
+    const float rs_p = __ldg(p.rowsum + b), rs_q = __ldg(p.rowsum + NPAD + b);
 #pragma unroll
     for (int l = 0; l < kLanes; ++l) {
+      float sp, sq;
+      spec_at(l, sp, sq);
       ir[l] += rs_p;
       ii[l] += rs_q;
-      fp[l] = (sp[l] - (e[l] * ir[l] + f[l] * ii[l])) * mk_p;
-      fq[l] = (sq[l] - (f[l] * ir[l] - e[l] * ii[l])) * mk_q;
+      fp[l] = (sp - (e[l] * ir[l] + f[l] * ii[l])) * mk_p;
+      fq[l] = (sq - (f[l] * ir[l] - e[l] * ii[l])) * mk_q;
       nonfinite[l] = (!isfinite(fp[l]) || !isfinite(fq[l])) ? 1.f : 0.f;
       err[l] = fmaxf(fabsf(fp[l]), fabsf(fq[l]));
       vm2max[l] = e[l] * e[l] + f[l] * f[l];
@@ -184,34 +280,31 @@ nr_large_kernel(const float* __restrict__ spec, const float* __restrict__ v0,
     block_max<NPAD>(err, sred[0]);
     block_max<NPAD>(nonfinite, sred[1]);
     block_max<NPAD>(vm2max, sred[2]);
+    unsigned big = 0;
 #pragma unroll
-    for (int l = 0; l < kLanes; ++l)
+    for (int l = 0; l < kLanes; ++l) {
       err[l] = nonfinite[l] > 0.f ? __int_as_float(0x7fc00000) : err[l] / s_ref[l];
+      big |= vm2max[l] > 100.f ? 1u << l : 0u;
+    }
+    return big;
   };
 
-  __syncthreads();
+  __syncthreads();   // Y in shared memory; s_ref written
   mismatch();
-  bool done[kLanes];
-  int niter[kLanes];
 #pragma unroll
-  for (int l = 0; l < kLanes; ++l) {
-    done[l] = !live[l] || err[l] < tol;   // NaN compares false: not done
-    niter[l] = 0;
-  }
+  for (int l = 0; l < kLanes; ++l)
+    done |= err[l] < p.tol ? 1u << l : 0u;   // NaN compares false: not done
 
-  for (int it = 0; it < max_iter; ++it) {
-    bool active = false;
-#pragma unroll
-    for (int l = 0; l < kLanes; ++l) active = active || !done[l];
+  for (int it = 0; it < p.max_iter; ++it) {
     // barrier: also orders this iteration's shared writes after last reads
-    if (!__syncthreads_or(active)) break;
+    if (!__syncthreads_or(done != kAll)) break;
 
     // Newton direction by preconditioned Richardson
     float dth[kLanes], dnu[kLanes], tp[kLanes], tq[kLanes];
     store_x<NPAD>(sx4, b, fp, fq);
     __syncthreads();
-    matvec<NPAD>(wpack, sx4, b, dth, dnu);
-    for (int k = 0; k < inner_iters; ++k) {
+    w_product<NPAD>(p.w_live, p.w_stride, m, wlive, sx4, b, dth, dnu);
+    for (int k = 0; k < p.inner_iters; ++k) {
       float de[kLanes], df[kLanes];
 #pragma unroll
       for (int l = 0; l < kLanes; ++l) {
@@ -221,7 +314,8 @@ nr_large_kernel(const float* __restrict__ spec, const float* __restrict__ v0,
       __syncthreads();
       store_x<NPAD>(sx4, b, de, df);
       __syncthreads();
-      matvec<NPAD>(ypack, sx4, b, tp, tq);   // [dIr, dIi]
+      y_product<NPAD>(colptr, ent, sx4, b, tp, tq);   // [dIr, dIi]
+      const float mk_p = __ldg(p.mask + b), mk_q = __ldg(p.mask + NPAD + b);
 #pragma unroll
       for (int l = 0; l < kLanes; ++l) {
         const float jp = (de[l] * ir[l] + e[l] * tp[l] + df[l] * ii[l] + f[l] * tq[l]) * mk_p;
@@ -232,7 +326,7 @@ nr_large_kernel(const float* __restrict__ spec, const float* __restrict__ v0,
       __syncthreads();
       store_x<NPAD>(sx4, b, tp, tq);
       __syncthreads();
-      matvec<NPAD>(wpack, sx4, b, tp, tq);
+      w_product<NPAD>(p.w_live, p.w_stride, m, wlive, sx4, b, tp, tq);
 #pragma unroll
       for (int l = 0; l < kLanes; ++l) {
         dth[l] += tp[l];
@@ -243,8 +337,9 @@ nr_large_kernel(const float* __restrict__ spec, const float* __restrict__ v0,
     // gated polar update: a done lane is an exact no-op
 #pragma unroll
     for (int l = 0; l < kLanes; ++l) {
-      const float gate = done[l] ? 0.f : 1.f;
-      niter[l] += done[l] ? 0 : 1;
+      const bool dl = done >> l & 1u;
+      const float gate = dl ? 0.f : 1.f;
+      if (b == 0 && !dl) ++s_niter[l];
       float s, c;
       sincosf(gate * dth[l], &s, &c);
       const float scale = 1.f + gate * dnu[l];
@@ -254,58 +349,95 @@ nr_large_kernel(const float* __restrict__ spec, const float* __restrict__ v0,
       f[l] = f2;
     }
     __syncthreads();   // last W-matvec reads of sx precede the mismatch writes
-    mismatch();
+    const unsigned big = mismatch();
 #pragma unroll
     for (int l = 0; l < kLanes; ++l) {
-      const bool stop = !isfinite(err[l]) || err[l] < tol || vm2max[l] > 100.f;
-      done[l] = done[l] || stop;
+      const bool stop = !isfinite(err[l]) || err[l] < p.tol;
+      done |= stop ? 1u << l : 0u;
     }
+    done |= big;
   }
 
 #pragma unroll
   for (int l = 0; l < kLanes; ++l) {
-    if (!live[l]) continue;
     const long r = row0 + l;
-    v_out[r * M + b] = e[l];
-    v_out[r * M + NPAD + b] = f[l];
+    if (r >= p.batch) continue;
+    p.v_out[r * M + b] = e[l];
+    p.v_out[r * M + NPAD + b] = f[l];
     if (b == 0) {
-      err_out[r] = err[l];
-      it_out[r] = niter[l];
+      p.err_out[r] = err[l];
+      p.it_out[r] = s_niter[l];
     }
   }
 }
 
 template <int NPAD>
-int launch(const float* spec, const float* v0, const float* ypack,
-           const float* wpack, const float* rowsum, const float* mask,
-           float* v_out, float* err_out, int* it_out, int batch, float tol,
-           int max_iter, int inner_iters, cudaStream_t stream) {
-  const int blocks = (batch + kLanes - 1) / kLanes;
-  nr_large_kernel<NPAD><<<blocks, NPAD, 0, stream>>>(
-      spec, v0, ypack, wpack, rowsum, mask, v_out, err_out, it_out, batch, tol,
-      max_iter, inner_iters);
+int launch(const Params& p, cudaStream_t stream) {
+  const int dyn = y_bytes(NPAD, p.nnz);
+  // static and dynamic shared memory together pass 48 KB: raise the
+  // instance's limit once, and again only for a grid with more nonzeros
+  static int smem_set = 0;
+  if (dyn > smem_set) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        nr_large_kernel<NPAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    smem_set = dyn;
+  }
+  const int blocks = (p.batch + kLanes - 1) / kLanes;
+  nr_large_kernel<NPAD><<<blocks, NPAD, dyn, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NPAD>
+int config(int nnz, int* cfg) {
+  cudaFuncAttributes attr;
+  const cudaError_t rc = cudaFuncGetAttributes(&attr, nr_large_kernel<NPAD>);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  cfg[0] = y_bytes(NPAD, nnz);
+  cfg[1] = static_cast<int>(attr.sharedSizeBytes);
+  cfg[2] = attr.numRegs;
+  cfg[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// All arrays float32 (it_out int32) on the device, row-major:
-// spec/v0/v_out (batch, 2 npad), ypack/wpack (2 npad, 2 npad),
-// rowsum/mask (2 npad,), err_out/it_out (batch,).  Returns the cudaError_t
-// of the launch (0 = ok).
-int nr_large_launch(const float* spec, const float* v0, const float* ypack,
-                    const float* wpack, const float* rowsum, const float* mask,
-                    float* v_out, float* err_out, int* it_out, int batch,
-                    int npad, float tol, int max_iter, int inner_iters,
+// All arrays on the device, row-major, float32 unless named: spec/v0/v_out
+// (batch, 2 npad); y_colptr int32 (2 npad + 1,) and y_ent int32 (nnz, 2)
+// {row, float bits}: Y's compressed columns; w_live (2 (n - 1), w_stride);
+// rowsum/mask (2 npad,); err_out float32 and it_out int32 (batch,).
+// Returns the cudaError_t of the launch (0 = ok).
+int nr_large_launch(const float* spec, const float* v0, const int* y_colptr,
+                    const int* y_ent, const float* w_live, const float* rowsum,
+                    const float* mask, float* v_out, float* err_out,
+                    int* it_out, int batch, int npad, int n, int nnz,
+                    int w_stride, float tol, int max_iter, int inner_iters,
                     void* stream) {
+  if (n < 2 || n > npad || w_stride % 4 || w_stride < 2 * (n - 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return 0;
+  const Params p{spec, v0, y_colptr, reinterpret_cast<const int2*>(y_ent),
+                 w_live, rowsum, mask, v_out, err_out, it_out, batch, n, nnz,
+                 w_stride, max_iter, inner_iters, tol};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (npad) {
-    case 128: return launch<128>(spec, v0, ypack, wpack, rowsum, mask, v_out, err_out, it_out, batch, tol, max_iter, inner_iters, s);
-    case 256: return launch<256>(spec, v0, ypack, wpack, rowsum, mask, v_out, err_out, it_out, batch, tol, max_iter, inner_iters, s);
-    case 384: return launch<384>(spec, v0, ypack, wpack, rowsum, mask, v_out, err_out, it_out, batch, tol, max_iter, inner_iters, s);
+    case 128: return launch<128>(p, s);
+    case 256: return launch<256>(p, s);
+    case 384: return launch<384>(p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The kernel instance of `npad` for a Y of `nnz` nonzeros: cfg receives
+// {dynamic shared memory bytes, static shared memory bytes, registers a
+// thread, local memory bytes a thread (stack frame and spills)}.  Returns a cudaError_t (0 = ok).
+int nr_large_config(int npad, int nnz, int* cfg) {
+  switch (npad) {
+    case 128: return config<128>(nnz, cfg);
+    case 256: return config<256>(nnz, cfg);
+    case 384: return config<384>(nnz, cfg);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

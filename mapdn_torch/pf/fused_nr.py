@@ -18,7 +18,9 @@ kernel beside a plain PyTorch version on the same packed operands:
   :func:`nr_solve_large_ref`.  Lanes on rows, buses on columns (padded to
   ``npad = round_up(max(n, 128), 128)``): every state array is
   ``(lanes, 2npad)`` of [real-half | imag-half] and the operators act by
-  right-multiplication.
+  right-multiplication.  The kernel takes Y by compressed columns and W on
+  its live block (:meth:`NRContext.kernel_tensors`); their plain products
+  are :meth:`NRContext.y_product` and :meth:`NRContext.w_product`.
 
 Both compute the algorithm of :func:`mapdn_torch.pf.newton.nr_solve`; the
 kernels carry the mismatch between iterations, so each iteration evaluates
@@ -64,14 +66,21 @@ class _PackedOperands:
 
     _OPERANDS = ()
 
-    def tensors(self, dtype, device):
-        """The operators, rowsum and mask as contiguous tensors, cached."""
-        key = (dtype, str(device))
+    def _cached(self, key, make):
         if key not in self._tensors:
-            self._tensors[key] = tuple(
-                torch.as_tensor(getattr(self, a), device=device).to(dtype).contiguous()
-                for a in self._OPERANDS)
+            self._tensors[key] = make()
         return self._tensors[key]
+
+    def tensors(self, dtype, device):
+        """The operators, rowsum and mask as contiguous tensors, cached: the
+        plain version's operands."""
+        return self._cached((dtype, str(device)), lambda: tuple(
+            torch.as_tensor(getattr(self, a), device=device).to(dtype).contiguous()
+            for a in self._OPERANDS))
+
+    def kernel_tensors(self, device):
+        """The CUDA kernel's operands on ``device``."""
+        return self.tensors(torch.float32, device)
 
 
 def _start(ctx, lanes, vm0, va0, kw):
@@ -191,7 +200,11 @@ class NRContext(_PackedOperands):
     and ``[fP, fQ] @ wpack -> [dtheta, dnu]``.  ``ypack``/``wpack`` are
     ``(2npad, 2npad)``, ``rowsum``/``mask`` ``(1, 2npad)``; the float32
     casts of these arrays are the JAX package's ``PallasNRContext``
-    operands bit for bit."""
+    operands bit for bit.  The kernel's compressed copies are built from
+    the same float64 arrays: Y's nonzeros by column (``y_colptr``,
+    ``y_rows``, ``y_cols``, ``y_vals``) and W's live block ``w_live``, the
+    rows and columns ``w_live_idx`` (all but the slack bus and the
+    padding), outside which W is zero."""
 
     _OPERANDS = ("ypack", "wpack", "rowsum", "mask")
 
@@ -230,11 +243,67 @@ class NRContext(_PackedOperands):
         mask[0, npad + 1:npad + n] = 1.0
         self.mask = mask
 
+        # the kernel's compressed operands, from the same float64 operators.
+        # Y by output column (CSC, rows ascending in each column):
+        # x @ ypack = sum over nonzeros of x[:, y_rows] * y_vals into y_cols
+        y_cols, y_rows = np.nonzero(self.ypack.T)
+        self.y_rows, self.y_cols = y_rows, y_cols
+        self.y_vals = self.ypack[y_rows, y_cols]
+        self.y_colptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(y_cols, minlength=2 * npad))])
+        # W is zero outside its live rows and columns (the slack bus and the
+        # padding): w_live = wpack[live][:, live], (2(n-1), 2(n-1))
+        self.w_live_idx = np.concatenate([np.arange(1, n), npad + np.arange(1, n)])
+        self.w_live = self.wpack[np.ix_(self.w_live_idx, self.w_live_idx)]
+
         self.n = n
         self.npad = npad
         self.inv_c = inv_c
         self.slack_vm = float(grid.slack_vm)
         self._tensors = {}
+
+    def kernel_tensors(self, device):
+        """The large kernel's operands on ``device``: Y's column pointers
+        (int32) and nonzeros as int32 pairs {row, float32 bits of the
+        value}, W's live block (float32) with each bus's two output columns
+        side by side (column 2j the real half of live bus j, 2j + 1 its
+        imaginary half) and its rows padded to 16 bytes, rowsum and mask
+        (float32)."""
+        def make():
+            lr = self.w_live.shape[0]
+            w_live = np.zeros((lr, _round_up(lr, 4)), np.float32)
+            w_live[:, 0:lr:2] = self.w_live[:, :lr // 2]
+            w_live[:, 1:lr:2] = self.w_live[:, lr // 2:]
+            ent = np.stack([self.y_rows.astype(np.int32),
+                            self.y_vals.astype(np.float32).view(np.int32)], 1)
+            *_, rowsum, mask = self.tensors(torch.float32, device)
+            as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+            return (as_t(self.y_colptr.astype(np.int32)), as_t(ent),
+                    as_t(w_live), rowsum, mask)
+        return self._cached(("kernel", str(device)), make)
+
+    def _sparse(self, dtype, device):
+        def make():
+            as_t = lambda a, dt: torch.as_tensor(a, device=device).to(dt)
+            return (as_t(self.y_rows, torch.long), as_t(self.y_cols, torch.long),
+                    as_t(self.y_vals, dtype), as_t(self.w_live_idx, torch.long),
+                    as_t(self.w_live, dtype))
+        return self._cached(("sparse", dtype, str(device)), make)
+
+    def y_product(self, x):
+        """``x @ ypack`` for ``(lanes, 2npad)`` x, from Y's compressed
+        columns: the plain version of the kernel's Y products."""
+        rows, cols, vals, _, _ = self._sparse(x.dtype, x.device)
+        out = torch.zeros_like(x)
+        return out.index_add_(1, cols, x[:, rows] * vals)
+
+    def w_product(self, x):
+        """``x @ wpack`` for ``(lanes, 2npad)`` x, on W's live block only:
+        the plain version of the kernel's W products."""
+        *_, live, w_live = self._sparse(x.dtype, x.device)
+        out = torch.zeros_like(x)
+        out[:, live] = x[:, live] @ w_live
+        return out
 
     def pack(self, p_inj, q_inj, vm0, va0, dtype):
         """Injections and start voltages -> (lanes, 2npad) spec and v0
@@ -356,11 +425,13 @@ def nr_small_kernel(spec, v0, ymat, wmat, rowsum, mask, *, tol, max_iter,
 
 
 def _solve(core, dtype, grid, ctx, p_inj, q_inj, tol, max_iter, inner_iters,
-           vm0, va0):
-    """Pack, run ``core`` on the context's operands, unpack to a PFResult in
-    the input's dtype."""
+           vm0, va0, operands=None):
+    """Pack, run ``core`` on ``operands`` (the context's plain operands in
+    ``dtype`` when not given), unpack to a PFResult in the input's dtype."""
     spec, v0 = ctx.pack(p_inj, q_inj, vm0, va0, dtype)
-    v, err, n_iter = core(spec, v0, *ctx.tensors(dtype, p_inj.device), tol=tol,
+    if operands is None:
+        operands = ctx.tensors(dtype, p_inj.device)
+    v, err, n_iter = core(spec, v0, *operands, tol=tol,
                           max_iter=max_iter, inner_iters=inner_iters)
     e, f = (x.to(p_inj.dtype) for x in ctx.unpack(v))
     vm = torch.sqrt(e * e + f * f)
@@ -373,17 +444,19 @@ def _solve(core, dtype, grid, ctx, p_inj, q_inj, tol, max_iter, inner_iters,
 def _dispatch(name, kernel, plain, ctx_of, grid, p_inj, q_inj, tol, max_iter,
               inner_iters, vm0, va0, ctx):
     """CPU tensors take the plain version in their dtype; CUDA tensors the
-    kernel in float32 (or its wrapper raises); other devices raise."""
+    kernel in float32 on its own operands (or its wrapper raises); other
+    devices raise."""
     ctx = ctx_of(grid) if ctx is None else ctx
     dev = p_inj.device.type
     if dev == "cpu":
-        core, dtype = plain, p_inj.dtype
+        core, dtype, operands = plain, p_inj.dtype, None
     elif dev == "cuda":
         core, dtype = kernel, torch.float32
+        operands = ctx.kernel_tensors(p_inj.device)
     else:
         raise ValueError(f"{name}: unsupported device {p_inj.device}")
     return _solve(core, dtype, grid, ctx, p_inj, q_inj, tol, max_iter,
-                  inner_iters, vm0, va0)
+                  inner_iters, vm0, va0, operands)
 
 
 def nr_solve_small_ref(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,
@@ -410,16 +483,23 @@ def nr_solve_small(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,
 nr_solve_small.launches = 0
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each kernel library's C functions: name -> (argument types, result type)
+_SIGNATURES = {
+    "nr_small": {"nr_small_launch": ([_P] * 9 + [_I, _I, _F, _I, _I, _P], _I),
+                 "nr_small_error_string": ([_I], ctypes.c_char_p)},
+    "nr_large": {"nr_large_launch": ([_P] * 10 + [_I] * 5 + [_F, _I, _I, _P], _I),
+                 "nr_large_config": ([_I, _I, _P], _I),
+                 "nr_large_error_string": ([_I], ctypes.c_char_p)},
+}
+
+
 def _kernel_lib(name):
     lib = cuda_build.load(name)
     if not getattr(lib, "_typed", False):
-        P, I = ctypes.c_void_p, ctypes.c_int
-        launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = [P] * 9 + [I, I, ctypes.c_float, I, I, P]
-        launch.restype = I
-        errstr = getattr(lib, f"{name}_error_string")
-        errstr.argtypes = [I]
-        errstr.restype = ctypes.c_char_p
+        for fn, (argtypes, restype) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         lib._typed = True
     return lib
 
@@ -447,32 +527,56 @@ def _check_npad(name, npad):
                          f"npad in {LARGE_NPADS}")
 
 
-def nr_large_kernel(spec, v0, ypack, wpack, rowsum, mask, *, tol, max_iter,
-                    inner_iters):
+def nr_large_kernel(spec, v0, y_colptr, y_ent, w_live, rowsum, mask, *, tol,
+                    max_iter, inner_iters):
     """One launch of the CUDA kernel ``csrc/nr_large.cu`` on packed float32
-    operands on the card (see :func:`nr_large_plain`); raises if the launch
-    fails.  This is the kernel's only launch site, and it counts each
-    launch in ``nr_solve_large.launches``."""
+    ``(lanes, 2npad)`` ``spec``/``v0`` and the context's
+    :meth:`NRContext.kernel_tensors` on the card (the function of
+    :func:`nr_large_plain`); raises if the launch fails.  This is the
+    kernel's only launch site, and it counts each launch in
+    ``nr_solve_large.launches``."""
     lanes, npad = spec.shape[0], spec.shape[1] // 2
-    args = (spec, v0, ypack, wpack, rowsum, mask)
     _check_npad("nr_large_kernel", npad)
-    for a in args:
-        if a.device.type != "cuda" or a.dtype != torch.float32 or not a.is_contiguous():
-            raise ValueError("nr_large_kernel: operands must be contiguous "
-                             "float32 CUDA tensors")
+    n = w_live.shape[0] // 2 + 1
+    floats = (spec, v0, w_live, rowsum, mask)
+    ints = (y_colptr, y_ent)
+    for a, dtype in [(a, torch.float32) for a in floats] + [(a, torch.int32) for a in ints]:
+        if a.device.type != "cuda" or a.dtype != dtype or not a.is_contiguous():
+            raise ValueError("nr_large_kernel: operands must be contiguous CUDA "
+                             "tensors, float32 (Y's compressed arrays int32)")
+    if (y_colptr.shape != (2 * npad + 1,) or y_ent.shape[1:] != (2,)
+            or w_live.shape[1] % 4 or not 2 <= n <= npad):
+        raise ValueError("nr_large_kernel: operand shapes do not match npad="
+                         f"{npad}")
     v = torch.empty_like(v0)
     err = torch.empty(lanes, dtype=torch.float32, device=v0.device)
     n_iter = torch.empty(lanes, dtype=torch.int32, device=v0.device)
     lib = _kernel_lib("nr_large")
     rc = lib.nr_large_launch(
-        *(a.data_ptr() for a in args), v.data_ptr(), err.data_ptr(),
-        n_iter.data_ptr(), lanes, npad, float(tol), int(max_iter),
-        int(inner_iters), torch.cuda.current_stream(v0.device).cuda_stream)
+        spec.data_ptr(), v0.data_ptr(), y_colptr.data_ptr(), y_ent.data_ptr(),
+        w_live.data_ptr(), rowsum.data_ptr(), mask.data_ptr(), v.data_ptr(),
+        err.data_ptr(), n_iter.data_ptr(), lanes, npad, n, y_ent.shape[0],
+        w_live.shape[1], float(tol), int(max_iter), int(inner_iters),
+        torch.cuda.current_stream(v0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("nr_large kernel launch failed: "
                            + lib.nr_large_error_string(rc).decode())
     nr_solve_large.launches += 1
     return v, err, n_iter
+
+
+def nr_large_config(ctx):
+    """The large kernel's instance for the grid of ``ctx`` (needs the card):
+    dynamic and static shared memory per block in bytes, registers a thread
+    and local memory (stack frame and spills) a thread in bytes."""
+    cfg = (ctypes.c_int * 4)()
+    lib = _kernel_lib("nr_large")
+    rc = lib.nr_large_config(ctx.npad, len(ctx.y_vals), ctypes.addressof(cfg))
+    if rc != 0:
+        raise RuntimeError("nr_large_config failed: "
+                           + lib.nr_large_error_string(rc).decode())
+    return dict(zip(("dynamic_smem_bytes", "static_smem_bytes", "registers",
+                     "local_bytes"), cfg))
 
 
 def nr_solve_large_ref(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,

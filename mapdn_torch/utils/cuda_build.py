@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, loaded with ``ctypes``:
 no PyTorch headers, so a build takes seconds.  Libraries land in
 ``build/mapdn_torch_kernels/`` at the repository root, named by a hash of
-the source and flags, so an edited source is never served a stale binary.
+the flags, the source and the csrc/ files it includes, so an edited source
+or header is never served a stale binary.
 
 Full-precision float32 only: no ``--use_fast_math`` (keeps IEEE division
 and the precise ``sinf``/``cosf``/``sincosf``).
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,11 +40,35 @@ def _nvcc():
                        "built from csrc/ at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path, seen):
+    """``path`` and every file it includes with ``#include "..."`` that
+    exists beside it, recursively, each once."""
+    path = os.path.normpath(path)
+    if path in seen:
+        return
+    seen.append(path)
+    with open(path, "rb") as fh:
+        text = fh.read()
+    for inc in _INCLUDE.findall(text):
+        dep = os.path.join(os.path.dirname(path), inc.decode())
+        if os.path.isfile(dep):
+            _sources(dep, seen)
+
+
 def _lib_path(name):
+    """The source of kernel ``name`` and its library's path, named by a hash
+    of the flags, the source and every file of csrc/ it includes."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(FLAGS).encode()).hexdigest()
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+    files = []
+    _sources(src, files)
+    h = hashlib.sha1(" ".join(FLAGS).encode())
+    for path in files:
+        with open(path, "rb") as fh:
+            h.update(os.path.relpath(path, CSRC).encode() + b"\0" + fh.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(*names):

@@ -14,6 +14,7 @@ import torch
 
 from mapdn_torch.grid import make_case
 from mapdn_torch.pf import fused_nr
+from mapdn_torch.utils import cuda_build
 from mapdn_torch.pf.fused_nr import (
     get_ctx, get_ctx_small, nr_solve_large, nr_solve_large_ref, nr_solve_small,
     nr_solve_small_ref)
@@ -57,6 +58,27 @@ def test_large_wrapper_takes_plain_version_for_cpu_tensors(case):
     assert nr_solve_large.launches == launches
     assert out.vm.dtype == torch.float64 and bool(out.converged.all())
     torch.testing.assert_close(out.vm, ref.vm, rtol=0, atol=0)
+
+
+def test_library_name_hashes_included_files(tmp_path, monkeypatch):
+    """The built library's name covers every csrc/ file the source includes,
+    recursively, so an edited header is never served a stale binary; files
+    outside csrc/ (system headers) and the flags count as before.  Builds
+    nothing."""
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    first = cuda_build._lib_path("k")[1]
+    assert cuda_build._lib_path("k")[1] == first
+    names = {first}
+    for name, text in (("b.cuh", "int b2;\n"), ("a.cuh", '#include "b.cuh"\nint a2;\n'),
+                       ("k.cu", '#include "a.cuh"\nint k2;\n')):
+        (tmp_path / name).write_text(text)
+        names.add(cuda_build._lib_path("k")[1])
+    assert len(names) == 4
+    monkeypatch.setattr(cuda_build, "FLAGS", cuda_build.FLAGS + ["-DX"])
+    assert cuda_build._lib_path("k")[1] not in names
 
 
 @pytest.fixture
@@ -167,6 +189,67 @@ def test_large_kernel_lanes_are_independent(cuda):
     torch.testing.assert_close(bad.vm[fine], out.vm[fine], rtol=0, atol=0)
 
 
+def _large_packed(case, lanes, device="cuda"):
+    grid, p, q = _injections(case, lanes, torch.float32, device)
+    ctx = get_ctx(grid)
+    spec, v0 = ctx.pack(p, q, None, None, torch.float32)
+    return ctx, spec, v0
+
+
+_KW = dict(tol=1e-7, max_iter=20, inner_iters=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 10, 8 * 8 + 3])
+@pytest.mark.parametrize("case", ["case33", "case141", "case322"])
+def test_large_kernel_batches_match_plain_version(cuda, case, lanes):
+    """One lane, the eval's 10 lanes and 8 k + 3 lanes (a ragged last
+    block), at npad 128, 256 and 384, against the plain version."""
+    ctx, spec, v0 = _large_packed(case, lanes)
+    v, err, it = fused_nr.nr_large_kernel(spec, v0, *ctx.kernel_tensors(spec.device), **_KW)
+    rv, rerr, rit = fused_nr.nr_large_plain(
+        spec, v0, *ctx.tensors(torch.float32, spec.device), **_KW)
+    torch.cuda.synchronize()
+    assert v.shape == v0.shape and err.shape == it.shape == (lanes,)
+    conv = (err < _KW["tol"]) & torch.isfinite(err)
+    assert bool(conv.all()) and bool(((rerr < _KW["tol"]) == conv).all())
+    assert int((it - rit).abs().max()) <= 1
+    same = it == rit
+    torch.testing.assert_close(v[same], rv[same], rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_large_kernel_repeats_bit_for_bit(cuda):
+    """Every sum runs over the same terms in the same order, so launch after
+    launch on 4096 lanes gives the same bits."""
+    ctx, spec, v0 = _large_packed("case322", 4096)
+    ops = ctx.kernel_tensors(spec.device)
+    outs = [fused_nr.nr_large_kernel(spec, v0, *ops, **_KW) for _ in range(4)]
+    for out in outs[1:]:
+        for got, want in zip(out, outs[0]):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_large_kernel_lanes_of_other_blocks_are_independent(cuda):
+    """A block whose 8 lanes all diverge or go NaN, and so stop at once,
+    leaves the lanes of the blocks around it the same bit for bit; the bad
+    lanes never read as converged."""
+    ctx, spec, v0 = _large_packed("case322", 8 * 4)
+    ops = ctx.kernel_tensors(spec.device)
+    good = fused_nr.nr_large_kernel(spec, v0, *ops, **_KW)
+    bad_spec = spec.clone()
+    bad_spec[8:15] *= 500.0                # block 1
+    bad_spec[15, 7] = float("nan")
+    bad = fused_nr.nr_large_kernel(bad_spec, v0, *ops, **_KW)
+    fine = torch.ones(spec.shape[0], dtype=torch.bool, device="cuda")
+    fine[8:16] = False
+    conv = (bad[1] < _KW["tol"]) & torch.isfinite(bad[1])
+    assert not bool(conv[~fine].any()) and bool(conv[fine].all())
+    for got, want in zip(bad, good):
+        torch.testing.assert_close(got[fine], want[fine], rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 def test_large_kernel_warm_start_takes_no_iteration(cuda):
     grid, p, q = _injections("case322", 64, torch.float32, "cuda")
@@ -183,6 +266,9 @@ def test_large_kernel_casts_back_and_bounds_npad(cuda):
     out = nr_solve_large(grid, p, q)
     assert out.vm.dtype == torch.float64 and bool(out.converged.all())
     m = 2 * 512
-    ops = [torch.zeros(s, device="cuda") for s in ((4, m), (4, m), (m, m), (m, m), (1, m), (1, m))]
+    ops = [torch.zeros(s, device="cuda") for s in ((4, m), (4, m))]
+    ops += [torch.zeros(m + 1, dtype=torch.int32, device="cuda"),
+            torch.zeros((8, 2), dtype=torch.int32, device="cuda")]
+    ops += [torch.zeros(s, device="cuda") for s in ((m - 4, m - 4), (1, m), (1, m))]
     with pytest.raises(ValueError, match="npad"):
         fused_nr.nr_large_kernel(*ops, tol=1e-7, max_iter=20, inner_iters=3)
