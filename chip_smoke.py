@@ -12,7 +12,9 @@ Phases, each printing one line; any failure exits non-zero:
                   plain PyTorch version and the torch-op solver on 8192
                   case33 lanes drawn from a numpy seed: agreement, divergence
                   isolation, warm start, NaN lane, false-divergence shares,
-                  median times and the bound.
+                  times and the bound; the kernel's registers and
+                  shared memory, its blocks' iterations and the GFLOP it
+                  runs.
 4. kernel_large - the large-grid NR kernel (csrc/nr_large.cu) against its
                   plain version on the test points of tests/test_pallas.py at
                   case33, case141 and case322, then the same checks as
@@ -68,6 +70,31 @@ def cuda_median_ms(fn, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def cuda_device_ms(fn, launches=20, reps=5):
+    """Device and host time of one call of ``fn``, whose work all runs on
+    the card without a host synchronization: ``launches`` calls enqueued
+    back to back behind a sleeping kernel, so that the host's own time per
+    call (the wrapper's checks and allocations, the launch) stays hidden
+    from the device.  Returns the medians over ``reps`` such runs of the
+    device time per call (CUDA events from the first launch to the last)
+    and of the host's wall time to enqueue one call."""
+    fn()
+    device, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)   # about 25 ms: longer than the enqueue
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / launches)
+        end.record()
+        end.synchronize()
+        device.append(start.elapsed_time(end) / launches)
+    return float(np.median(device)), float(np.median(host))
 
 
 def phase_device():
@@ -236,23 +263,31 @@ def phase_kernel():
     # timing: the solvers from injections to PFResult (pack, solve, unpack,
     # bus and branch results) as the env calls them, each with its operands
     # resolved once; then the kernel alone against its plain version on the
-    # same packed operands
+    # same packed operands: `ms` one call from the host (the wrapper's
+    # checks and launch included), `device_ms` and `host_ms` the call's
+    # device and host time apart (cuda_device_ms)
     ctx = get_ctx_small(grid)
     solve_kernel = make_solver(grid, backend="kernel")
     solver_ms = {"kernel": cuda_median_ms(lambda: solve_kernel(p, q)),
                  "plain": cuda_median_ms(lambda: nr_solve_small_ref(grid, p, q, ctx=ctx)),
                  "torch": cuda_median_ms(lambda: nr_solve(grid, p, q, ops=ops))}
     spec, v0 = ctx.pack(p, q, None, None, torch.float32)
-    kops = ctx.tensors(torch.float32, p.device)
+    kops = ctx.kernel_tensors(p.device)
+    pops = ctx.tensors(torch.float32, p.device)
     kw = dict(tol=1e-7, max_iter=20, inner_iters=3)
     kres = fused_nr.nr_small_kernel(spec, v0, *kops, **kw)
-    cmp = compare_packed(ctx, kres, fused_nr.nr_small_plain(spec, v0, *kops, **kw),
+    cmp = compare_packed(ctx, kres, fused_nr.nr_small_plain(spec, v0, *pops, **kw),
                          kw["tol"])
     assert cmp["converged_equal"], cmp
     assert cmp["packed_max_abs_err_same_iters"] <= 2e-5 and cmp["packed_max_abs_err"] <= 1e-4, cmp
     kit = kres[2]
     ms = cuda_median_ms(lambda: fused_nr.nr_small_kernel(spec, v0, *kops, **kw))
-    plain_ms = cuda_median_ms(lambda: fused_nr.nr_small_plain(spec, v0, *kops, **kw))
+    device_ms, host_ms = cuda_device_ms(
+        lambda: fused_nr.nr_small_kernel(spec, v0, *kops, **kw))
+    plain_ms = cuda_median_ms(lambda: fused_nr.nr_small_plain(spec, v0, *pops, **kw))
+    inner = kw["inner_iters"]
+    cfg = fused_nr.nr_small_config(ctx)
+    counts = small_kernel_counts(ctx, kit, inner)
 
     # bound of the kernel's function on these inputs.  Operations: per lane
     # one mismatch product with Y, then per Newton iteration it ran, one W
@@ -261,15 +296,13 @@ def phase_kernel():
     # product counted at 2 flops per nonzero of its operator (case33 is a
     # radial feeder: Y is about a tenth full, W's padding rows are zero),
     # at the FP32 peak.  Bytes: spec and v0 read, the two operators, rowsum
-    # and mask read once, v, err and n_iter written.  The kernel itself runs
-    # the products dense on the padded (2nb x 2nb) operators: flops_padded
+    # and mask read once, v, err and n_iter written.  What the kernel runs
+    # is `gflop_run` (small_kernel_counts)
     m = 2 * n
-    inner = kw["inner_iters"]
     nnz_y, nnz_w = int(np.count_nonzero(ctx.ymat)), int(np.count_nonzero(ctx.wmat))
     lane_iters = float(kit.double().sum())
     flops = 2.0 * (nnz_y * (N_LANES + (inner + 1) * lane_iters)
                    + nnz_w * (inner + 1) * lane_iters)
-    flops_padded = 2.0 * (2 * ctx.nb) ** 2 * (N_LANES + 2 * (inner + 1) * lane_iters)
     nbytes = 4 * (3 * m * N_LANES + 2 * m * m + 2 * m + 2 * N_LANES)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     bound_ms = max(t_ops, t_bytes) * 1e3
@@ -283,14 +316,16 @@ def phase_kernel():
         packed=cmp, lanes_one_iter_apart=int((ok & ~same).sum()), vm_err_vs_float64=vs64,
         warm_start_zero_iter_share_tol_1e_7=zero_iter,
         max_n_iter_diff=d_it, mean_n_iter=float(kit.double().mean()),
-        false_divergence=fdiv, ms=ms, plain_ms=plain_ms, solver_ms=solver_ms,
-        bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
-        gflop_padded=flops_padded / 1e9, nnz_y=nnz_y, nnz_w=nnz_w,
+        config=cfg, **counts,
+        false_divergence=fdiv, ms=ms, device_ms=device_ms, host_ms=host_ms,
+        plain_ms=plain_ms, solver_ms=solver_ms, bound_ms=bound_ms,
+        bound_by=bound_by, gflop=flops / 1e9, nnz_y=nnz_y, nnz_w=nnz_w,
         mbytes=nbytes / 1e6)
     return dict(name="nr_small", route="cuda", source="mapdn_torch/csrc/nr_small.cu",
                 replaces="mapdn_tpu/pf/pallas_nr.py:404",
-                max_abs_err=cmp["packed_max_abs_err"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                max_abs_err=cmp["packed_max_abs_err"], ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def phase_kernel_large():
@@ -384,7 +419,8 @@ def phase_kernel_large():
 
     # timing: the solvers from injections to PFResult as the env calls them
     # (each with its operands resolved once), then the kernel alone against
-    # its plain version on the same packed operands
+    # its plain version on the same packed operands (`ms`, `device_ms` and
+    # `host_ms` as for the small kernel)
     solve_auto = make_solver(grid, backend="auto")
     solver_ms = {"kernel": cuda_median_ms(lambda: solve_auto(p, q)),
                  "plain": cuda_median_ms(lambda: nr_solve_large_ref(grid, p, q, ctx=ctx)),
@@ -397,6 +433,8 @@ def phase_kernel_large():
     cmp = compare_packed(ctx, kres, plain, kw["tol"])
     assert cmp["converged_equal"] and cmp["max_abs_err_same_iters"] <= 2e-5, cmp
     ms = cuda_median_ms(lambda: fused_nr.nr_large_kernel(spec, v0, *kops, **kw))
+    device_ms, host_ms = cuda_device_ms(
+        lambda: fused_nr.nr_large_kernel(spec, v0, *kops, **kw))
     plain_ms = cuda_median_ms(lambda: fused_nr.nr_large_plain(spec, v0, *pops, **kw))
 
     kit = kres[2]
@@ -445,13 +483,31 @@ def phase_kernel_large():
         warm_start_zero_iter_share_tol_1e_7=zero_iter,
         mean_n_iter=float(kit.double().mean()),
         config=cfg, **counts,
-        false_divergence=fdiv, ms=ms, plain_ms=plain_ms, solver_ms=solver_ms,
-        bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
-        nnz_y=nnz_y, nnz_w=nnz_w, mbytes=nbytes / 1e6, case141=case141)
+        false_divergence=fdiv, ms=ms, device_ms=device_ms, host_ms=host_ms,
+        plain_ms=plain_ms, solver_ms=solver_ms, bound_ms=bound_ms,
+        bound_by=bound_by, gflop=flops / 1e9, nnz_y=nnz_y, nnz_w=nnz_w,
+        mbytes=nbytes / 1e6, case141=case141)
     return dict(name="nr_large", route="cuda", source="mapdn_torch/csrc/nr_large.cu",
                 replaces="mapdn_tpu/pf/pallas_nr.py:158",
-                max_abs_err=cmp["packed_max_abs_err"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                max_abs_err=cmp["packed_max_abs_err"], ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def small_kernel_counts(ctx, n_iter, inner):
+    """What the small kernel runs on these lanes, computed from the counts
+    (not measured): the iterations of each block (its 32 lanes' largest
+    n_iter: a block iterates while any of its lanes does) and the GFLOP it
+    runs (32 lanes a block, Y on its bus rows, two FMAs an entry, W on its
+    live block with rows padded to 4 floats)."""
+    lanes = n_iter.shape[0]
+    iters = torch.nn.functional.pad(n_iter, (0, -lanes % 32)).view(-1, 32).amax(1).double()
+    lr = ctx.w_live.shape[0]
+    products = float(((inner + 1) * iters).sum())
+    y_fmas = 2 * len(ctx.y_cols)
+    flops = 2.0 * 32 * (y_fmas * (len(iters) + products)
+                        + lr * (-(-lr // 4) * 4) * products)
+    return {"mean_block_iters": float(iters.mean()), "gflop_run": flops / 1e9}
 
 
 def large_kernel_counts(ctx, n_iter, inner):

@@ -10,7 +10,10 @@ kernel beside a plain PyTorch version on the same packed operands:
   (from ``nr_solve_pallas_small``) and :func:`nr_solve_small_ref`.  Buses on
   rows (padded to ``nb = round_up(n, 8)``), lanes on columns: every state
   array is ``(2nb, lanes)`` of [real-half; imag-half] and the operators act
-  by left-multiplication.
+  by left-multiplication.  The kernel takes Y's rows paired by bus and W
+  on its live block (:meth:`NRSmallContext.kernel_tensors`);
+  their plain products are :meth:`NRSmallContext.y_product` and
+  :meth:`NRSmallContext.w_product`.
 * large grids: ``NRContext`` (from ``PallasNRContext``), the kernel
   ``csrc/nr_large.cu`` (from ``_nr_kernel``) launched by
   :func:`nr_large_kernel`, its plain version :func:`nr_large_plain`, and the
@@ -62,7 +65,9 @@ def _np64(t):
 
 class _PackedOperands:
     """The operands of one grid's kernel, cached as tensors per dtype and
-    device.  Subclasses set ``_OPERANDS`` and define ``pack``/``unpack``."""
+    device.  Subclasses set ``_OPERANDS`` and define ``pack``/``unpack``,
+    ``kernel_tensors`` and ``_y_entries`` (Y's compressed entries: their
+    index arrays and values, as the plain Y product takes them)."""
 
     _OPERANDS = ()
 
@@ -78,9 +83,23 @@ class _PackedOperands:
             torch.as_tensor(getattr(self, a), device=device).to(dtype).contiguous()
             for a in self._OPERANDS))
 
-    def kernel_tensors(self, device):
-        """The CUDA kernel's operands on ``device``."""
-        return self.tensors(torch.float32, device)
+    def _live_block(self, w, pad):
+        """W's live block from the dense float64 ``w``: ``w_live``, the rows
+        and columns ``w_live_idx`` = [1, n) u [pad + 1, pad + n), outside
+        which W is zero (the slack bus and the padding)."""
+        n = self.n
+        self.w_live_idx = np.concatenate([np.arange(1, n), pad + np.arange(1, n)])
+        self.w_live = w[np.ix_(self.w_live_idx, self.w_live_idx)]
+
+    def _sparse(self, dtype, device):
+        """The plain products' operands as tensors, cached: Y's entries
+        (``_y_entries``; indices int64, values ``dtype``), then W's live
+        rows and columns and its live block."""
+        def make():
+            as_t = lambda a: torch.as_tensor(a, device=device).to(
+                dtype if a.dtype.kind == "f" else torch.long)
+            return tuple(map(as_t, (*self._y_entries(), self.w_live_idx, self.w_live)))
+        return self._cached(("sparse", dtype, str(device)), make)
 
 
 def _start(ctx, lanes, vm0, va0, kw):
@@ -100,7 +119,13 @@ class NRSmallContext(_PackedOperands):
 
     ``ymat``/``wmat`` are ``(2nb, 2nb)``, ``rowsum``/``mask`` ``(2nb, 1)``;
     the float32 casts of these arrays are the JAX package's
-    ``PallasNRSmallContext`` operands bit for bit."""
+    ``PallasNRSmallContext`` operands bit for bit.  The kernel's compressed
+    copies are built from the same float64 arrays: Y's rows paired by bus
+    (``y_busptr``, ``y_cols``, ``y_vals``: bus b's entries are the union of
+    the columns of rows b and nb + b, ascending, each with both rows'
+    values) and W's live block ``w_live``, the rows and columns
+    ``w_live_idx`` (all but the slack bus and the padding), outside which W
+    is zero."""
 
     _OPERANDS = ("ymat", "wmat", "rowsum", "mask")
 
@@ -142,6 +167,55 @@ class NRSmallContext(_PackedOperands):
         self.inv_c = inv_c
         self.slack_vm = float(grid.slack_vm)
         self._tensors = {}
+        # Y's rows paired by bus: ymat @ x = sum over bus b's entries of
+        # y_vals[:, 0] * x[y_cols] into row b, y_vals[:, 1] * x[y_cols]
+        # into row nb + b (an exact zero where one row lacks the column)
+        bus, self.y_cols = np.nonzero((self.ymat[:nb] != 0) | (self.ymat[nb:] != 0))
+        self.y_vals = np.stack([self.ymat[bus, self.y_cols],
+                                self.ymat[nb + bus, self.y_cols]], 1)
+        self.y_busptr = np.concatenate([[0], np.cumsum(np.bincount(bus, minlength=nb))])
+        self._live_block(self.wmat, nb)
+
+    def _y_entries(self):
+        return (np.repeat(np.arange(self.nb), np.diff(self.y_busptr)),
+                self.y_cols, self.y_vals)
+
+    def kernel_tensors(self, device):
+        """The small kernel's operands on ``device``: Y's bus pointers
+        (int32) and entries as int32 {column, float32 bits of both rows'
+        values, 0}, W's live block (float32) row-major with its rows padded
+        to a multiple of 4 floats (16 bytes) with zeros, rowsum and mask
+        (float32)."""
+        def make():
+            lr = self.w_live.shape[0]
+            w_live = np.zeros((lr, _round_up(lr, 4)), np.float32)
+            w_live[:, :lr] = self.w_live
+            bits = self.y_vals.astype(np.float32).view(np.int32)
+            ent = np.concatenate([self.y_cols.astype(np.int32)[:, None], bits,
+                                  np.zeros((len(bits), 1), np.int32)], 1)
+            *_, rowsum, mask = self.tensors(torch.float32, device)
+            as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+            return (as_t(self.y_busptr.astype(np.int32)), as_t(ent), as_t(w_live),
+                    rowsum, mask)
+        return self._cached(("kernel", str(device)), make)
+
+    def y_product(self, x):
+        """``ymat @ x`` for ``(2nb, lanes)`` x, from Y's bus rows: the plain
+        version of the kernel's Y products."""
+        bus, cols, vals, _, _ = self._sparse(x.dtype, x.device)
+        out = torch.zeros_like(x)
+        xs = x[cols]
+        out[:self.nb].index_add_(0, bus, xs * vals[:, :1])
+        out[self.nb:].index_add_(0, bus, xs * vals[:, 1:])
+        return out
+
+    def w_product(self, x):
+        """``wmat @ x`` for ``(2nb, lanes)`` x, on W's live block only: the
+        plain version of the kernel's W products."""
+        *_, live, w_live = self._sparse(x.dtype, x.device)
+        out = torch.zeros_like(x)
+        out[live] = w_live @ x[live]
+        return out
 
     def pack(self, p_inj, q_inj, vm0, va0, dtype):
         """Injections and start voltages -> (2nb, lanes) spec and v0
@@ -243,24 +317,22 @@ class NRContext(_PackedOperands):
         mask[0, npad + 1:npad + n] = 1.0
         self.mask = mask
 
-        # the kernel's compressed operands, from the same float64 operators.
-        # Y by output column (CSC, rows ascending in each column):
-        # x @ ypack = sum over nonzeros of x[:, y_rows] * y_vals into y_cols
-        y_cols, y_rows = np.nonzero(self.ypack.T)
-        self.y_rows, self.y_cols = y_rows, y_cols
-        self.y_vals = self.ypack[y_rows, y_cols]
-        self.y_colptr = np.concatenate(
-            [[0], np.cumsum(np.bincount(y_cols, minlength=2 * npad))])
-        # W is zero outside its live rows and columns (the slack bus and the
-        # padding): w_live = wpack[live][:, live], (2(n-1), 2(n-1))
-        self.w_live_idx = np.concatenate([np.arange(1, n), npad + np.arange(1, n)])
-        self.w_live = self.wpack[np.ix_(self.w_live_idx, self.w_live_idx)]
-
         self.n = n
         self.npad = npad
         self.inv_c = inv_c
         self.slack_vm = float(grid.slack_vm)
         self._tensors = {}
+        # the kernel's compressed operands, from the same float64 operators.
+        # Y by output column (CSC, rows ascending in each column):
+        # x @ ypack = sum over nonzeros of x[:, y_rows] * y_vals into y_cols
+        self.y_cols, self.y_rows = np.nonzero(self.ypack.T)
+        self.y_vals = self.ypack[self.y_rows, self.y_cols]
+        self.y_colptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(self.y_cols, minlength=2 * npad))])
+        self._live_block(self.wpack, npad)
+
+    def _y_entries(self):
+        return self.y_rows, self.y_cols, self.y_vals
 
     def kernel_tensors(self, device):
         """The large kernel's operands on ``device``: Y's column pointers
@@ -281,14 +353,6 @@ class NRContext(_PackedOperands):
             return (as_t(self.y_colptr.astype(np.int32)), as_t(ent),
                     as_t(w_live), rowsum, mask)
         return self._cached(("kernel", str(device)), make)
-
-    def _sparse(self, dtype, device):
-        def make():
-            as_t = lambda a, dt: torch.as_tensor(a, device=device).to(dt)
-            return (as_t(self.y_rows, torch.long), as_t(self.y_cols, torch.long),
-                    as_t(self.y_vals, dtype), as_t(self.w_live_idx, torch.long),
-                    as_t(self.w_live, dtype))
-        return self._cached(("sparse", dtype, str(device)), make)
 
     def y_product(self, x):
         """``x @ ypack`` for ``(lanes, 2npad)`` x, from Y's compressed
@@ -394,34 +458,67 @@ def nr_small_plain(spec, v0, ymat, wmat, rowsum, mask, *, tol, max_iter,
     return v, err, n_iter
 
 
-def nr_small_kernel(spec, v0, ymat, wmat, rowsum, mask, *, tol, max_iter,
-                    inner_iters):
+def _check_operands(name, floats, ints):
+    for a, dtype in [(a, torch.float32) for a in floats] + [(a, torch.int32) for a in ints]:
+        if a.device.type != "cuda" or a.dtype != dtype or not a.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous CUDA tensors, "
+                             "float32 (Y's compressed arrays int32)")
+
+
+def nr_small_kernel(spec, v0, y_busptr, y_ent, w_live, rowsum, mask, *, tol,
+                    max_iter, inner_iters):
     """One launch of the CUDA kernel ``csrc/nr_small.cu`` on packed float32
-    operands on the card (see :func:`nr_small_plain`); raises if the launch
-    fails.  This is the kernel's only launch site, and it counts each
-    launch in ``nr_solve_small.launches``."""
+    ``(2nb, lanes)`` ``spec``/``v0`` and the context's
+    :meth:`NRSmallContext.kernel_tensors` on the card (the function of
+    :func:`nr_small_plain`); raises if the launch fails.  This is the
+    kernel's only launch site, and it counts each launch in
+    ``nr_solve_small.launches``."""
     nb, lanes = spec.shape[0] // 2, spec.shape[1]
-    args = (spec, v0, ymat, wmat, rowsum, mask)
     if nb > SMALL_NB or nb % 8:
         raise ValueError(f"nr_small_kernel: nb={nb}; the kernel holds "
                          f"nb <= {SMALL_NB}, a multiple of 8")
-    for a in args:
-        if a.device.type != "cuda" or a.dtype != torch.float32 or not a.is_contiguous():
-            raise ValueError("nr_small_kernel: operands must be contiguous "
-                             "float32 CUDA tensors")
+    n = w_live.shape[0] // 2 + 1
+    _check_operands("nr_small_kernel", (spec, v0, w_live, rowsum, mask),
+                    (y_busptr, y_ent))
+    if (y_busptr.shape != (nb + 1,) or y_ent.shape[1:] != (4,)
+            or w_live.shape[1] % 4 or not 2 <= n <= nb):
+        raise ValueError(f"nr_small_kernel: operand shapes do not match nb={nb}")
     v = torch.empty_like(v0)
     err = torch.empty(lanes, dtype=torch.float32, device=v0.device)
     n_iter = torch.empty(lanes, dtype=torch.int32, device=v0.device)
     lib = _kernel_lib("nr_small")
     rc = lib.nr_small_launch(
-        *(a.data_ptr() for a in args), v.data_ptr(), err.data_ptr(),
-        n_iter.data_ptr(), lanes, nb, float(tol), int(max_iter),
-        int(inner_iters), torch.cuda.current_stream(v0.device).cuda_stream)
+        spec.data_ptr(), v0.data_ptr(), y_busptr.data_ptr(), y_ent.data_ptr(),
+        w_live.data_ptr(), rowsum.data_ptr(), mask.data_ptr(), v.data_ptr(),
+        err.data_ptr(), n_iter.data_ptr(), lanes, nb, n, y_ent.shape[0],
+        w_live.shape[1], float(tol), int(max_iter), int(inner_iters),
+        torch.cuda.current_stream(v0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("nr_small kernel launch failed: "
                            + lib.nr_small_error_string(rc).decode())
     nr_solve_small.launches += 1
     return v, err, n_iter
+
+
+def _kernel_config(name, *args):
+    """A kernel instance's resources (needs the card): dynamic and static
+    shared memory per block in bytes, registers a thread and local memory
+    (stack frame and spills) a thread in bytes."""
+    cfg = (ctypes.c_int * 4)()
+    lib = _kernel_lib(name)
+    rc = getattr(lib, f"{name}_config")(*args, ctypes.addressof(cfg))
+    if rc != 0:
+        raise RuntimeError(f"{name}_config failed: "
+                           + getattr(lib, f"{name}_error_string")(rc).decode())
+    return dict(zip(("dynamic_smem_bytes", "static_smem_bytes", "registers",
+                     "local_bytes"), cfg))
+
+
+def nr_small_config(ctx):
+    """The small kernel's instance for the grid of ``ctx`` (needs the card),
+    as :func:`_kernel_config` gives it."""
+    w_stride = _round_up(ctx.w_live.shape[0], 4)
+    return _kernel_config("nr_small", ctx.nb, ctx.n, len(ctx.y_cols), w_stride)
 
 
 def _solve(core, dtype, grid, ctx, p_inj, q_inj, tol, max_iter, inner_iters,
@@ -486,7 +583,8 @@ nr_solve_small.launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each kernel library's C functions: name -> (argument types, result type)
 _SIGNATURES = {
-    "nr_small": {"nr_small_launch": ([_P] * 9 + [_I, _I, _F, _I, _I, _P], _I),
+    "nr_small": {"nr_small_launch": ([_P] * 10 + [_I] * 5 + [_F, _I, _I, _P], _I),
+                 "nr_small_config": ([_I] * 4 + [_P], _I),
                  "nr_small_error_string": ([_I], ctypes.c_char_p)},
     "nr_large": {"nr_large_launch": ([_P] * 10 + [_I] * 5 + [_F, _I, _I, _P], _I),
                  "nr_large_config": ([_I, _I, _P], _I),
@@ -538,12 +636,8 @@ def nr_large_kernel(spec, v0, y_colptr, y_ent, w_live, rowsum, mask, *, tol,
     lanes, npad = spec.shape[0], spec.shape[1] // 2
     _check_npad("nr_large_kernel", npad)
     n = w_live.shape[0] // 2 + 1
-    floats = (spec, v0, w_live, rowsum, mask)
-    ints = (y_colptr, y_ent)
-    for a, dtype in [(a, torch.float32) for a in floats] + [(a, torch.int32) for a in ints]:
-        if a.device.type != "cuda" or a.dtype != dtype or not a.is_contiguous():
-            raise ValueError("nr_large_kernel: operands must be contiguous CUDA "
-                             "tensors, float32 (Y's compressed arrays int32)")
+    _check_operands("nr_large_kernel", (spec, v0, w_live, rowsum, mask),
+                    (y_colptr, y_ent))
     if (y_colptr.shape != (2 * npad + 1,) or y_ent.shape[1:] != (2,)
             or w_live.shape[1] % 4 or not 2 <= n <= npad):
         raise ValueError("nr_large_kernel: operand shapes do not match npad="
@@ -566,17 +660,9 @@ def nr_large_kernel(spec, v0, y_colptr, y_ent, w_live, rowsum, mask, *, tol,
 
 
 def nr_large_config(ctx):
-    """The large kernel's instance for the grid of ``ctx`` (needs the card):
-    dynamic and static shared memory per block in bytes, registers a thread
-    and local memory (stack frame and spills) a thread in bytes."""
-    cfg = (ctypes.c_int * 4)()
-    lib = _kernel_lib("nr_large")
-    rc = lib.nr_large_config(ctx.npad, len(ctx.y_vals), ctypes.addressof(cfg))
-    if rc != 0:
-        raise RuntimeError("nr_large_config failed: "
-                           + lib.nr_large_error_string(rc).decode())
-    return dict(zip(("dynamic_smem_bytes", "static_smem_bytes", "registers",
-                     "local_bytes"), cfg))
+    """The large kernel's instance for the grid of ``ctx`` (needs the card),
+    as :func:`_kernel_config` gives it."""
+    return _kernel_config("nr_large", ctx.npad, len(ctx.y_vals))
 
 
 def nr_solve_large_ref(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,

@@ -18,13 +18,16 @@ from mapdn_torch.utils import cuda_build
 from mapdn_torch.pf.fused_nr import (
     get_ctx, get_ctx_small, nr_solve_large, nr_solve_large_ref, nr_solve_small,
     nr_solve_small_ref)
+from test_torch_pf_sparse import RADIAL, radial_grid
 
 torch.set_num_threads(1)
 
 
 def _injections(case, lanes, dtype, device):
-    """Base loads scaled 0.6 .. 1.2 across lanes (tests/test_pallas.py)."""
-    grid, load_p, load_q, _ = make_case(case, dtype=dtype, device=device)
+    """Base loads scaled 0.6 .. 1.2 across lanes (tests/test_pallas.py), on
+    a case of ``make_case`` or a synthetic radial feeder of ``RADIAL``."""
+    grid, load_p, load_q, _ = (radial_grid(case, dtype, device) if case in RADIAL
+                               else make_case(case, dtype=dtype, device=device))
     inc = grid.load_inc.double().cpu().numpy()
     scale = np.linspace(0.6, 1.2, lanes)[:, None]
     p = -(np.asarray(load_p) @ inc.T)[None] * scale
@@ -142,6 +145,74 @@ def test_kernel_casts_back_and_bounds_grid_size(cuda):
         nr_solve_small(big, pb, qb)
 
 
+def _small_packed(case, lanes, device="cuda"):
+    grid, p, q = _injections(case, lanes, torch.float32, device)
+    ctx = get_ctx_small(grid)
+    spec, v0 = ctx.pack(p, q, None, None, torch.float32)
+    return ctx, spec, v0
+
+
+_KW = dict(tol=1e-7, max_iter=20, inner_iters=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 31, 33, 250])
+@pytest.mark.parametrize("case,nb", [("radial13", 16), ("case33", 40), ("radial62", 64)])
+def test_small_kernel_batches_match_plain_version(cuda, case, nb, lanes):
+    """One lane, a block less one lane, a block and one lane, and 250 lanes
+    (a ragged last 32-lane block), at nb 16, 40 and 64, against the plain
+    version on the same packed float32 operands."""
+    ctx, spec, v0 = _small_packed(case, lanes)
+    assert ctx.nb == nb
+    launches = nr_solve_small.launches
+    v, err, it = fused_nr.nr_small_kernel(spec, v0, *ctx.kernel_tensors(spec.device), **_KW)
+    rv, rerr, rit = fused_nr.nr_small_plain(
+        spec, v0, *ctx.tensors(torch.float32, spec.device), **_KW)
+    torch.cuda.synchronize()
+    assert nr_solve_small.launches == launches + 1
+    assert v.shape == v0.shape and err.shape == it.shape == (lanes,)
+    conv = (err < _KW["tol"]) & torch.isfinite(err)
+    assert bool(conv.all()) and bool(((rerr < _KW["tol"]) == conv).all())
+    assert int((it - rit).abs().max()) <= 1
+    # float32 against float32, sums in another order: the tolerance of
+    # tests/test_pallas.py, on lanes that ran the same iterations
+    same = it == rit
+    torch.testing.assert_close(v[:, same], rv[:, same], rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_small_kernel_repeats_bit_for_bit(cuda):
+    """Every sum runs over the same terms in the same order, so launch after
+    launch on 8192 lanes gives the same bits."""
+    ctx, spec, v0 = _small_packed("case33", 8192)
+    ops = ctx.kernel_tensors(spec.device)
+    outs = [fused_nr.nr_small_kernel(spec, v0, *ops, **_KW) for _ in range(4)]
+    for out in outs[1:]:
+        for got, want in zip(out, outs[0]):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_small_kernel_lanes_of_other_blocks_are_independent(cuda):
+    """A block whose 32 lanes all diverge or go NaN, and so stop at once,
+    leaves the lanes of the blocks around it the same bit for bit; the bad
+    lanes never read as converged."""
+    ctx, spec, v0 = _small_packed("case33", 32 * 4)
+    ops = ctx.kernel_tensors(spec.device)
+    good = fused_nr.nr_small_kernel(spec, v0, *ops, **_KW)
+    bad_spec = spec.clone()
+    bad_spec[:, 32:63] *= 500.0            # block 1
+    bad_spec[7, 63] = float("nan")
+    bad = fused_nr.nr_small_kernel(bad_spec, v0, *ops, **_KW)
+    fine = torch.ones(spec.shape[1], dtype=torch.bool, device="cuda")
+    fine[32:64] = False
+    conv = (bad[1] < _KW["tol"]) & torch.isfinite(bad[1])
+    assert not bool(conv[~fine].any()) and bool(conv[fine].all())
+    torch.testing.assert_close(bad[0][:, fine], good[0][:, fine], rtol=0, atol=0)
+    for got, want in zip(bad[1:], good[1:]):
+        torch.testing.assert_close(got[fine], want[fine], rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,npad", [("case33", 128), ("case141", 256),
                                        ("case322", 384)])
@@ -194,9 +265,6 @@ def _large_packed(case, lanes, device="cuda"):
     ctx = get_ctx(grid)
     spec, v0 = ctx.pack(p, q, None, None, torch.float32)
     return ctx, spec, v0
-
-
-_KW = dict(tol=1e-7, max_iter=20, inner_iters=3)
 
 
 @pytest.mark.cuda

@@ -13,8 +13,10 @@ from mapdn_torch.grid import make_case as torch_case
 from mapdn_torch.pf.fused_nr import make_solver, nr_solve_small, nr_solve_small_ref
 from mapdn_torch.pf.newton import nr_solve
 from mapdn_tpu.grid import make_case as jax_case
+from mapdn_tpu.grid.cases import _synthetic_radial as jax_radial
 from mapdn_tpu.pf.newton import nr_solve as jax_nr_solve
 from mapdn_tpu.pf.pallas_nr import nr_solve_pallas_small
+from test_torch_pf_sparse import RADIAL, radial_args, radial_grid
 
 torch.set_num_threads(1)
 
@@ -30,7 +32,10 @@ def _one_blas_thread():
 
 def _injections(case, lanes):
     """Base loads scaled 0.6 .. 1.2 across lanes (tests/test_pallas.py)."""
-    grid, load_p, load_q, _ = jax_case(case, dtype=jnp.float64)
+    return _load_injections(*jax_case(case, dtype=jnp.float64)[:3], lanes)
+
+
+def _load_injections(grid, load_p, load_q, lanes):
     n = grid.n_bus
     p = np.zeros(n)
     q = np.zeros(n)
@@ -64,6 +69,23 @@ def case33():
 
 def test_small_plain_matches_pallas_interpret(case33):
     jgrid, tgrid, p, q = case33
+    ref = nr_solve_pallas_small(jgrid, jnp.asarray(p, jnp.float32),
+                                jnp.asarray(q, jnp.float32), interpret=True)
+    out = nr_solve_small_ref(tgrid, torch.tensor(p), torch.tensor(q))
+    assert bool(out.converged.all()) and bool(np.asarray(ref.converged).all())
+    np.testing.assert_allclose(out.vm.numpy(), np.asarray(ref.vm), atol=2e-5)
+    np.testing.assert_allclose(out.va.numpy(), np.asarray(ref.va), atol=2e-5)
+    assert np.abs(out.n_iter.numpy() - np.asarray(ref.n_iter)).max() <= 1
+
+
+@pytest.mark.parametrize("feeder", sorted(RADIAL))
+def test_small_plain_matches_pallas_interpret_on_radial_feeders(feeder):
+    """As above on synthetic radial feeders of nb 16 and 64, beside
+    case33's 40 (the largest width the small kernel holds is 64)."""
+    args, kw = radial_args(feeder)
+    jgrid, load_p, load_q, _ = jax_radial(*args, **kw, dtype=jnp.float64)
+    _, p, q = _load_injections(jgrid, load_p, load_q, 8)
+    tgrid, *_ = radial_grid(feeder)
     ref = nr_solve_pallas_small(jgrid, jnp.asarray(p, jnp.float32),
                                 jnp.asarray(q, jnp.float32), interpret=True)
     out = nr_solve_small_ref(tgrid, torch.tensor(p), torch.tensor(q))
