@@ -32,6 +32,15 @@ Phases, each printing one line; any failure exits non-zero:
                   episode-0 eval and the final save; then ``--resume`` for one
                   more episode.  The large kernel's launches are counted
                   around each run, the eval's apart from the training's.
+8. algos        - the other algorithms of the case33 sweep (iddpg, maddpg,
+                  matd3, ippo, iac, coma, sqddpg) and the random baseline,
+                  one line each: (a) the losses and gradients on the card
+                  against the CPU, float64, same parameters, batch and
+                  draws; (b) one training episode through
+                  ``mapdn_torch.train.main`` with the flags of
+                  train_case33.sh at the 512 lanes of scripts/train_zoo.py,
+                  the episode-0 eval and the final save, the small kernel's
+                  launches counted, the eval's apart.
 
 The line before the last two is the kernels' JSON record, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -52,6 +61,12 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 N_LANES = 8192          # case33 lanes (bench.py)
 N_LANES_322 = 4096      # case322 lanes (scripts/bench_cases.py:35)
+N_LANES_ALGOS = 512     # case33 sweep lanes (scripts/train_zoo.py N_ENVS)
+ALGOS = ("iddpg", "maddpg", "matd3", "ippo", "iac", "coma", "sqddpg", "random")
+# [algos] (a): the card's losses against the CPU's to this relative
+# tolerance, and each gradient's difference to this share of its global norm
+LOSS_RTOL = 1e-4
+GRAD_TOL = 1e-3
 
 def say(phase, **kw):
     print(f"[{phase}] " + json.dumps(kw), flush=True)
@@ -608,12 +623,20 @@ def phase_train(smi):
     return launches
 
 
-def case322_flags():
+def case322_flags(alg="mappo"):
     """The flags of train_case322.sh at the lane count of
     scripts/bench_cases.py."""
-    return ["--alg", "mappo", "--mode", "distributed",
+    return ["--alg", alg, "--mode", "distributed",
             "--scenario", "case322_3min_final", "--voltage-barrier-type", "bowl",
             "--n-envs", str(N_LANES_322)]
+
+
+def case33_flags(alg):
+    """The flags of train_case33.sh at the lane count of
+    scripts/train_zoo.py."""
+    return ["--alg", alg, "--mode", "distributed",
+            "--scenario", "case33_3min_final", "--voltage-barrier-type", "bowl",
+            "--n-envs", str(N_LANES_ALGOS)]
 
 
 def phase_train322(smi):
@@ -694,6 +717,131 @@ def phase_train322(smi):
     return second["launches"]
 
 
+def loss_check(alg, info):
+    """[algos] (a): one algorithm's losses and gradients on the card against
+    the CPU, both float64 from the same parameters, on one batch (numpy seed
+    0, 4 steps x 64 lanes, case33's widths) with the same explicit draws.
+    Returns the largest relative errors of the losses and the gradients."""
+    import copy
+
+    from mapdn_torch.algos import Transition, make_model
+    from mapdn_torch.utils.config import load_config
+
+    cfg, _ = load_config(alg, scenario="case33_3min_final", overrides=dict(
+        agent_num=info["n_agents"], obs_size=info["obs_shape"],
+        action_dim=info["n_actions"]))
+    n, o, h = cfg.agent_num, cfg.obs_size, cfg.hid_size
+    models = {d: make_model(alg, cfg, device=d, param_dtype=torch.float64)
+              for d in ("cpu", "cuda")}
+    cpu_state = models["cpu"].init_state(torch.Generator().manual_seed(0))
+    states = {"cpu": cpu_state, "cuda": models["cuda"].state_from_modules(
+        copy.deepcopy(cpu_state.policy), copy.deepcopy(cpu_state.value))}
+
+    rng = np.random.RandomState(0)
+    t, l = 4, 64
+    b, s = t * l, cfg.sample_size or 1
+    done = (rng.rand(t, l) < 0.1).astype(np.float64)
+    h_next = h if models["cpu"].stores_next_hidden else 0
+    raw = dict(
+        state=rng.randn(t, l, n, o), action=rng.uniform(-0.99, 0.99, (t, l, n, 1)),
+        log_prob_a=rng.randn(t, l, n, 1) - 1.0, value=rng.randn(t, l, n),
+        next_value=rng.randn(t, l, n), reward=np.repeat(rng.randn(t, l, 1), n, -1),
+        next_state=rng.randn(t, l, n, o), done=done, last_step=done,
+        last_hid=0.3 * rng.randn(t, l, n, h), hid=0.3 * rng.randn(t, l, n, h_next))
+    draws = {"target_noise": rng.randn(b, n, 1), "sample_noise": rng.randn(s, b, n, 1)}
+    for name in ("policy_positions", "value_positions", "next_positions"):
+        draws[name] = rng.rand(b, s, n).argsort(-1)
+
+    out = {}
+    for d, model in models.items():
+        batch = Transition(**{k: torch.tensor(v, device=d) for k, v in raw.items()})
+        avail = torch.ones((n, 1), dtype=torch.float64, device=d)
+        pl, vl, _ = model.get_loss(states[d], batch, avail, draws=draws)
+        grads = []
+        for loss, module in ((pl, states[d].policy), (vl, states[d].value)):
+            params = list(module.parameters())
+            g = (torch.autograd.grad(loss, params) if loss.requires_grad
+                 else [torch.zeros_like(p) for p in params])
+            grads.append([x.cpu() for x in g])
+        out[d] = ([float(pl.detach()), float(vl.detach())], grads)
+    (cpu_losses, cpu_grads), (gpu_losses, gpu_grads) = out["cpu"], out["cuda"]
+    loss_err = max(abs(a - c) / max(abs(c), 1e-300) for a, c in zip(gpu_losses, cpu_losses))
+    for a, c in zip(gpu_losses, cpu_losses):
+        assert abs(a - c) <= LOSS_RTOL * abs(c), (alg, gpu_losses, cpu_losses)
+    grad_err = 0.0
+    for ga, gc in zip(gpu_grads, cpu_grads):
+        diff = math.sqrt(sum(float(((x - y) ** 2).sum()) for x, y in zip(ga, gc)))
+        norm = math.sqrt(sum(float((y ** 2).sum()) for y in gc))
+        assert diff <= GRAD_TOL * norm, (alg, diff, norm)
+        grad_err = max(grad_err, diff / norm if norm > 0 else 0.0)
+    return loss_err, grad_err
+
+
+def phase_algos(smi):
+    """The case33 sweep's other algorithms, each checked on the card against
+    the CPU (``loss_check``) and trained for one episode through the CLI
+    with the flags of train_case33.sh at 512 lanes, the episode-0 eval and
+    the final save included; the small kernel's count set to 0 before each
+    run and read after it, the eval's share read around ``evaluate`` as in
+    ``phase_train322``.  Every algorithm runs; any failure fails the phase
+    after the last."""
+    import tempfile
+    import traceback
+
+    from mapdn_torch import train
+    from mapdn_torch.envs import EnvConfig, make_env
+    from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+
+    info = make_env("case33", EnvConfig(), days=8, device="cpu").get_env_info()
+    evaluate, eval_launches = PGTrainer.evaluate, []
+
+    def counted_evaluate(self):
+        before = nr_solve_small.launches
+        out = evaluate(self)
+        eval_launches.append(nr_solve_small.launches - before)
+        return out
+
+    failed = []
+    PGTrainer.evaluate = counted_evaluate
+    try:
+        for alg in ALGOS:
+            t0 = time.perf_counter()
+            try:
+                loss_err, grad_err = loss_check(alg, info)
+                with tempfile.TemporaryDirectory() as tmp:
+                    torch.cuda.reset_peak_memory_stats()
+                    eval_launches.clear()
+                    nr_solve_small.launches = 0
+                    summary = train.main(case33_flags(alg) + ["--episodes", "1",
+                                                              "--save-path", tmp])
+                    launches, in_eval = nr_solve_small.launches, sum(eval_launches)
+                assert len(summary["episode_s"]) == 1, summary["episode_s"]
+                assert launches - in_eval >= 240, (launches, in_eval)
+                (stat,) = summary["stats"]
+                for k, v in stat.items():
+                    assert math.isfinite(v), (k, v)
+                episode_s = summary["episode_s"][0]
+                say("algos", alg=alg, n_envs=N_LANES_ALGOS, env_steps=summary["max_steps"],
+                    env_steps_per_s=summary["max_steps"] * N_LANES_ALGOS / episode_s,
+                    episode_s=episode_s, eval_s=summary["eval_s"], save_s=summary["save_s"],
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    kernel_launches_train=launches - in_eval, kernel_launches_eval=in_eval,
+                    loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
+                    reward=stat["mean_train_reward"], test_reward=stat["mean_test_reward"],
+                    value_loss=stat["mean_train_value_loss"],
+                    policy_loss=stat["mean_train_policy_loss"],
+                    wall_s=time.perf_counter() - t0, card=smi)
+            except Exception:
+                traceback.print_exc()
+                say("algos", alg=alg, failed=True)
+                failed.append(alg)
+    finally:
+        PGTrainer.evaluate = evaluate
+    if failed:
+        raise SystemExit(f"chip_smoke: [algos] failed for {failed}")
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -702,6 +850,7 @@ def main():
     phase_golden()
     small["launches"] = phase_train(smi)
     large["launches"] = phase_train322(smi)
+    phase_algos(smi)
     print(json.dumps({"kernels": [small, large]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

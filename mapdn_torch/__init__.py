@@ -7,7 +7,7 @@ The module tree mirrors mapdn_tpu's so each file has an obvious counterpart:
     config      mapdn_torch.utils.config   (3-layer YAML merge -> dataclass)
     utils       mapdn_torch.utils          (metrics logging, checkpoints, kernel build)
     runtime     mapdn_torch.learn          (trainer with eval, replay, losses, sampling)
-    algorithms  mapdn_torch.algos          (MAPPO)
+    algorithms  mapdn_torch.algos          (8 of the 10 and random; registry)
     networks    mapdn_torch.nets           (GRU/MLP agents, critics)
     environment mapdn_torch.envs           (natively batched voltage control)
     physics     mapdn_torch.pf + .grid     (batched NR power flow, Y-bus)

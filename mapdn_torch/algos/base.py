@@ -13,6 +13,11 @@
 Only the shared-parameter path and deterministic (fixed-std) policies are
 ported.  Learnable state lives in :class:`AlgoState` (modules + optimizer
 states); the model holds static configuration.
+
+Randomness in a loss (MATD3's target smoothing, COMA's baseline samples,
+SQDDPG's coalitions) comes from the ``generator`` passed to ``get_loss``,
+or explicitly from its ``draws`` dict, one tensor a draw, so parity runs
+can hand in the JAX package's draws.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 
 from mapdn_torch.learn.sampling import batchnorm, select_action_continuous
 from mapdn_torch.nets.agents import MLPAgent, RNNAgent
+from mapdn_torch.nets.critics import MLPCritic
 from mapdn_torch.utils.device import resolve_device
 
 
@@ -75,6 +81,14 @@ def soft_update(target, source, tau):
 def flatten_batch(x):
     """(T, L, ...) -> (T*L, ...)."""
     return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def mix_detached(x, detached, live):
+    """``x.detach() * detached + x * live``: the entries ``live`` marks pass
+    gradients, the ones ``detached`` marks only values (the joint action
+    of a centralized critic, where an agent's gradient reaches its own
+    action only: reference maddpg.py:40-65)."""
+    return x.detach() * detached + x * live
 
 
 class ClippedRMSprop:
@@ -146,7 +160,9 @@ class MARLModel:
         raise NotImplementedError
 
     def make_value_module(self):
-        raise NotImplementedError
+        """An MLP critic over ``value_in_dim`` features (subclasses with
+        another critic override)."""
+        return MLPCritic(self.value_in_dim, output_dim=1, **self._net_kw())
 
     # ---------------------------------------------------------------- init
     def init_state(self, generator=None) -> AlgoState:
@@ -178,13 +194,24 @@ class MARLModel:
         eye = torch.eye(self.n, dtype=dtype, device=self.device)
         return eye.expand(batch_size, self.n, self.n)
 
+    def id_dim(self):
+        return self.n if self.cfg.agent_id else 0
+
+    def with_ids(self, x):
+        """(b, n, d) -> (b, n, d [+ n]): the agent-id one-hot appended."""
+        if not self.cfg.agent_id:
+            return x
+        return torch.cat([x, self.agent_ids(x.shape[0], x.dtype)], dim=-1)
+
+    def own_mask(self, dtype):
+        """(n, n) identity: entry (i, j) marks agent i's own slot j."""
+        return torch.eye(self.n, dtype=dtype, device=self.device)
+
     def policy(self, module, obs, last_hid):
         """(b, n, o) -> means, log_stds, hid (b, n, .) (reference
         model.py:101-139), fixed std exp(log fixed_policy_std)."""
         b = obs.shape[0]
-        if self.cfg.agent_id:
-            obs = torch.cat([obs, self.agent_ids(b, obs.dtype)], dim=-1)
-        flat = obs.reshape(b * self.n, -1)
+        flat = self.with_ids(obs).reshape(b * self.n, -1)
         hid_flat = last_hid.reshape(b * self.n, self.hid_dim)
         means, _, hid = module(flat, hid_flat)
         means = means.reshape(b, self.n, -1)
@@ -209,6 +236,17 @@ class MARLModel:
     def value(self, module, obs, act=None):
         raise NotImplementedError
 
+    def apply_critic(self, module, inputs):
+        """The critic on per-agent inputs (b, n, d) -> (b, n), one (b*n, d)
+        forward (shared parameters)."""
+        b, n = inputs.shape[0], inputs.shape[1]
+        return module(inputs.reshape(b * n, -1)).reshape(b, n)
+
+    def next_policy(self, state: AlgoState):
+        """The policy that bootstraps next-state actions: the behaviour one
+        under ``double_q``, else the target."""
+        return state.policy if self.cfg.double_q else state.target_policy
+
     # ---------------------------------------------------------------- batch
     def unpack(self, batch: Transition) -> Transition:
         """Flatten (T, L, ...) -> (b, ...) with reward normalization
@@ -219,6 +257,10 @@ class MARLModel:
             reward = batchnorm(reward)
         return flat.replace(reward=reward)
 
-    def get_loss(self, state: AlgoState, batch: Transition, avail, **parts):
-        """(policy_loss, value_loss, (means, log_stds))."""
+    def get_loss(self, state: AlgoState, batch: Transition, avail, *,
+                 policy=True, value=True, generator=None, draws=None):
+        """(policy_loss, value_loss, (means, log_stds)).  A part not asked
+        for (``policy=False`` / ``value=False``) may be None, and its
+        network is then not evaluated; random draws come from ``draws``
+        where given, else from ``generator``."""
         raise NotImplementedError

@@ -1,0 +1,20 @@
+"""IDDPG: independent DDPG, per-agent critic Q(o_i [+ id], a_i) (PyTorch port
+of mapdn_tpu/algos/iddpg.py; reference models/iddpg.py)."""
+from __future__ import annotations
+
+import torch
+
+from mapdn_torch.algos.base import MARLModel
+from mapdn_torch.learn.losses import ddpg_loss
+
+
+class IDDPG(MARLModel):
+    def construct_value_net(self):
+        self.value_in_dim = self.obs_dim + self.act_dim + self.id_dim()
+
+    def value(self, module, obs, act):
+        return self.apply_critic(module, torch.cat([self.with_ids(obs), act], dim=-1))
+
+    def get_loss(self, state, batch, avail, *, policy=True, value=True,
+                 generator=None, draws=None):
+        return ddpg_loss(self, state, batch, avail, policy=policy, value=value)

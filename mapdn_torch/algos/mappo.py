@@ -24,5 +24,6 @@ class MAPPO(MARLModel):
         """(b, n, o) -> (b, n) centralized values."""
         return module(obs.reshape(obs.shape[0], -1))[..., 0]
 
-    def get_loss(self, state, batch, avail, **parts):
-        return ppo_loss(self, state, batch, avail, **parts)
+    def get_loss(self, state, batch, avail, *, policy=True, value=True,
+                 generator=None, draws=None):
+        return ppo_loss(self, state, batch, avail, policy=policy, value=value)

@@ -1,4 +1,17 @@
-"""PPO loss and GAE (PyTorch port of mapdn_tpu/learn/losses.py)."""
+"""Losses: DDPG, actor-critic, PPO with GAE (PyTorch port of
+mapdn_tpu/learn/losses.py).
+
+Each returns (policy_loss, value_loss, (means, log_stds)) and honours
+``policy=`` / ``value=``: a part not asked for is None and only what the
+other part needs is evaluated.  Bootstrap targets are computed under
+``torch.no_grad()``: they are stop-gradient in the JAX package, so the
+values are the same and no graph is kept.
+
+The DDPG family's policy and next actions are
+``select_action_continuous(status="train", exploration=False)``, which
+returns the raw means, not ``tanh(means)`` (mapdn_tpu/learn/sampling.py:
+105-130); the JAX package does the same and the port keeps it.
+"""
 from __future__ import annotations
 
 import torch
@@ -21,12 +34,69 @@ def gae_advantages(rewards, next_values, values, mask, gamma, lambda_):
     return torch.stack(out[::-1])
 
 
+def _bootstrap(model, state, b, avail, value_module):
+    """V(s', a') of the next policy's actions, no graph (the callers'
+    targets are stop-gradient)."""
+    with torch.no_grad():
+        _, next_actions, _, _, _ = model.get_actions(
+            model.next_policy(state), b.next_state, b.hid, status="train",
+            exploration=False, avail=avail)
+        return model.value(value_module, b.next_state, next_actions)
+
+
+def ddpg_loss(model, state, batch, avail, *, policy=True, value=True):
+    """TD(0) critic against the target critic and the deterministic policy
+    gradient through the behaviour critic (reference
+    learning_algorithms/ddpg.py:15-39); draws nothing."""
+    cfg = model.cfg
+    b = model.unpack(batch)
+    policy_loss, value_loss, dist = None, None, (None, None)
+    if policy:
+        _, actions_pol, _, dist, _ = model.get_actions(
+            state.policy, b.state, b.last_hid, status="train",
+            exploration=False, avail=avail)
+        advantages = model.value(state.value, b.state, actions_pol)
+        if cfg.normalize_advantages:
+            advantages = batchnorm(advantages)
+        policy_loss = -torch.mean(advantages)
+    if value:
+        next_values = _bootstrap(model, state, b, avail, state.target_value)
+        values = model.value(state.value, b.state, b.action)
+        returns = b.reward + cfg.gamma * (1.0 - b.done[:, None]) * next_values
+        value_loss = torch.mean((returns - values) ** 2)
+    return policy_loss, value_loss, dist
+
+
+def actor_critic_loss(model, state, batch, avail, *, policy=True, value=True):
+    """TD critic and the detached Q times the log-prob as the policy
+    gradient (reference learning_algorithms/actor_critic.py:16-56).  The
+    bootstrap is the behaviour critic's, not the target's (reference :37)."""
+    cfg = model.cfg
+    b = model.unpack(batch)
+    policy_loss, value_loss, dist = None, None, (None, None)
+    if policy:
+        means, log_stds, _ = model.policy(state.policy, b.state, b.last_hid)
+        restore_mask = (avail != 0).to(means.dtype)
+        log_prob_a = torch.sum(
+            restore_mask * policy_log_density(cfg, b.action, means, log_stds), dim=-1)
+        with torch.no_grad():
+            advantages = model.value(state.value, b.state, b.action)
+        if cfg.normalize_advantages:
+            advantages = batchnorm(advantages)
+        policy_loss = -torch.mean(advantages * log_prob_a)
+        dist = (means, log_stds)
+    if value:
+        next_values = _bootstrap(model, state, b, avail, state.value)
+        values = model.value(state.value, b.state, b.action)
+        returns = b.reward + cfg.gamma * (1.0 - b.done[:, None]) * next_values
+        value_loss = torch.mean((returns - values) ** 2)
+    return policy_loss, value_loss, dist
+
+
 def ppo_loss(model, state, batch, avail, *, policy=True, value=True):
     """Clipped-surrogate PPO with GAE over the contiguous window (reference
     learning_algorithms/ppo.py:16-71, with true behaviour log-probs in the
-    ratio).  Returns (policy_loss, value_loss, (means, log_stds)); a part
-    not asked for (``policy=False`` / ``value=False``) is None and its
-    network is not evaluated."""
+    ratio); draws nothing."""
     cfg = model.cfg
     restore_dtype = batch.state.dtype
 

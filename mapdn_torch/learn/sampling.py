@@ -31,6 +31,15 @@ def policy_log_density(cfg, actions, means, log_stds):
     return normal_log_density(actions, means, log_stds)
 
 
+def draw_normal(given, shape, like, generator):
+    """``given`` (an explicit draw) on ``like``'s device and dtype, or when
+    it is None standard normals of ``shape`` drawn there from
+    ``generator``."""
+    if given is not None:
+        return torch.as_tensor(given, device=like.device).to(like.dtype)
+    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
 def select_action_continuous(cfg, means, log_stds, *, status="train",
                              exploration=True, clip=False, generator=None,
                              noise=None):
@@ -44,10 +53,7 @@ def select_action_continuous(cfg, means, log_stds, *, status="train",
     """
     if status == "train" and exploration:
         std = torch.exp(log_stds)
-        if noise is None:
-            noise = torch.randn(means.shape, generator=generator,
-                                dtype=means.dtype, device=means.device)
-        noise = torch.as_tensor(noise, device=means.device).to(means.dtype)
+        noise = draw_normal(noise, means.shape, means, generator)
         if cfg.action_enforcebound:
             x = means + std * noise
             y = torch.tanh(x)

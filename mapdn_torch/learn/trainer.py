@@ -16,13 +16,19 @@ when the chunk refills the whole ring (``chunk_len >= capacity``, the
 vectorized regime); only the newest ``capacity`` steps are kept.
 Otherwise each step is written into the ring as it is produced.
 
+Off-policy algorithms keep the ring across chunks and episodes; on-policy
+ones clear it after each update.
+
 Randomness comes from the carry's ``torch.Generator`` on the trainer's
 device.  ``_train_chunk`` also takes the draws explicitly (the parity tests
 replay the JAX package's key splits): ``draws = {"steps": [{"action_noise":
 (L, n, act), "env": {...}} per step], "value_lanes": (E_v, lanes),
-"policy_lanes": (E_p, lanes)}``, any part of which may be missing; so does
-``_eval_rollout``: ``draws = {"reset": {"t0", "noise", "a0"}, "steps":
-[{"step_noise": ...} per step]}``.
+"value_starts": (E_v,), "value_loss": [the loss's draws per epoch], and the
+same three for "policy"}``, any part of which may be missing (a loss's
+draws are named by its model, e.g. MATD3's ``target_noise``);
+``_train_episode`` takes a list of such dicts, one a chunk; and
+``_eval_rollout`` takes ``draws = {"reset": {"t0", "noise", "a0"},
+"steps": [{"step_noise": ...} per step]}``.
 """
 from __future__ import annotations
 
@@ -54,6 +60,14 @@ class TrainerCarry:
     replay: rb.ReplayState
     generator: torch.Generator
     steps: int                 # env steps taken (per lane)
+
+
+def _grads(loss, params):
+    """d loss / d params; zeros where the loss reads no parameter (the
+    random baseline's zero losses), as ``jax.grad`` gives."""
+    if not loss.requires_grad:
+        return [torch.zeros_like(p) for p in params]
+    return torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
 
 
 def _mean_stats(stat_list):
@@ -175,11 +189,12 @@ class PGTrainer:
         return carry, trans, stats
 
     # --------------------------------------------------------------- updates
-    def _update_epochs(self, algo, replay, generator, *, which, epochs,
-                       lane_draws=None):
+    def _update_epochs(self, algo, replay, generator, *, which, epochs, draws):
         """``epochs`` optimizer steps on freshly sampled windows (reference
         trainer.py:58-71).  A ring whose capacity equals batch_size without
-        lane subsampling gives the same window every epoch: sampled once."""
+        lane subsampling gives the same window every epoch: sampled once.
+        ``draws[which + "_lanes" | "_starts" | "_loss"]`` give each epoch's
+        draws where present."""
         cfg = self.cfg
         model = self.model
         if epochs <= 0:
@@ -189,31 +204,34 @@ class PGTrainer:
         fixed_window = None
         if replay.capacity == cfg.batch_size and not subsampling:
             fixed_window = rb.sample_window(replay, cfg.batch_size, generator=generator)
+        epoch_draws = lambda key, e: None if draws.get(key) is None else draws[key][e]
         stats = []
         for e in range(epochs):
-            lane_idx = None if lane_draws is None else lane_draws[e]
             if fixed_window is not None:
                 batch = fixed_window
             else:
-                batch = rb.sample_window(replay, cfg.batch_size, lanes,
-                                         generator=generator, lane_idx=lane_idx)
+                batch = rb.sample_window(
+                    replay, cfg.batch_size, lanes, generator=generator,
+                    lane_idx=epoch_draws(which + "_lanes", e),
+                    start=epoch_draws(which + "_starts", e))
             batch = batch.map(self._upcast)
+            loss_kw = dict(generator=generator, draws=epoch_draws(which + "_loss", e))
             if which == "value":
-                _, vl, _ = model.get_loss(algo, batch, self.avail, policy=False)
+                _, vl, _ = model.get_loss(algo, batch, self.avail, policy=False, **loss_kw)
                 params = list(algo.value.parameters())
-                grads = torch.autograd.grad(vl, params)
+                grads = _grads(vl, params)
                 gn = global_norm(grads)
                 model.value_tx.step(params, grads, algo.value_opt)
                 stats.append({"mean_train_value_loss": vl.detach(),
                               "mean_train_value_grad_norm": gn})
             else:
                 pl, _, (means, log_stds) = model.get_loss(
-                    algo, batch, self.avail, value=False)
+                    algo, batch, self.avail, value=False, **loss_kw)
                 ent = normal_entropy(means, log_stds)
                 if cfg.entr > 0:
                     pl = pl - cfg.entr * ent
                 params = list(algo.policy.parameters())
-                grads = torch.autograd.grad(pl, params)
+                grads = _grads(pl, params)
                 gn = global_norm(grads)
                 model.policy_tx.step(params, grads, algo.policy_opt)
                 stats.append({"mean_train_policy_loss": pl.detach(),
@@ -225,11 +243,9 @@ class PGTrainer:
         cfg = self.cfg
         draws = draws or {}
         stats = self._update_epochs(algo, replay, generator, which="value",
-                                    epochs=cfg.value_update_epochs,
-                                    lane_draws=draws.get("value_lanes"))
+                                    epochs=cfg.value_update_epochs, draws=draws)
         stats.update(self._update_epochs(algo, replay, generator, which="policy",
-                                         epochs=cfg.policy_update_epochs,
-                                         lane_draws=draws.get("policy_lanes")))
+                                         epochs=cfg.policy_update_epochs, draws=draws))
         return stats
 
     def _soft_update(self, algo: AlgoState):
@@ -289,14 +305,16 @@ class PGTrainer:
                     stats[k] = torch.zeros((), device=self.device)
         return carry, stats
 
-    def _train_episode(self, carry: TrainerCarry):
+    def _train_episode(self, carry: TrainerCarry, draws=None):
         """``_chunks_per_episode`` chunks with a soft target update after
-        every chunk that crossed a ``target_update_freq`` boundary."""
+        every chunk that crossed a ``target_update_freq`` boundary;
+        ``draws``: one ``_train_chunk`` draws dict a chunk."""
         cfg = self.cfg
+        draws = draws or [None] * self._chunks_per_episode
         stats = []
-        for _ in range(self._chunks_per_episode):
+        for c in range(self._chunks_per_episode):
             prev = carry.steps
-            carry, st = self._train_chunk(carry)
+            carry, st = self._train_chunk(carry, draws[c])
             if cfg.target and (carry.steps // cfg.target_update_freq
                                > prev // cfg.target_update_freq):
                 self._soft_update(carry.algo)
@@ -326,7 +344,7 @@ class PGTrainer:
         for t in range(cfg.max_steps):
             _, action_pol, _, _, hid = self.model.get_actions(
                 algo.policy, obs, hid, status="test", exploration=False,
-                avail=self.avail)
+                avail=self.avail, generator=generator)
             out = self.env.step(env_state, self.env.translate_actions(action_pol),
                                 generator, noise=(step_draws[t] or {}).get("step_noise"))
             sums["mean_test_reward"] += out.reward * alive

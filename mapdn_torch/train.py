@@ -96,14 +96,11 @@ def _timed(device, fn):
 
 def build_trainer(args):
     """(cfg, env_dict, trainer) of parsed flags: the 3-layer config, the
-    env and a set-up MAPPO trainer on the flags' device."""
+    env and a set-up trainer of ``--alg`` on the flags' device."""
     if args.distributed or args.coordinator or args.num_processes or args.process_id is not None:
         raise NotImplementedError(
             "multi-GPU training is not ported to mapdn_torch yet (ROADMAP A12)")
-    if args.alg != "mappo":
-        raise NotImplementedError(
-            f"--alg {args.alg}: only mappo is ported to mapdn_torch yet (ROADMAP A7)")
-    from mapdn_torch.algos import MAPPO
+    from mapdn_torch.algos import make_model
     from mapdn_torch.envs import make_env
     from mapdn_torch.learn.trainer import PGTrainer
     from mapdn_torch.utils.config import load_config
@@ -127,7 +124,7 @@ def build_trainer(args):
                       max_steps=min(cfg.max_steps, info["episode_limit"]))
     if args.max_steps:
         cfg = cfg.replace(max_steps=args.max_steps)
-    trainer = PGTrainer(cfg, MAPPO(cfg, device=device), env).setup(seed=args.seed)
+    trainer = PGTrainer(cfg, make_model(args.alg, cfg, device=device), env).setup(seed=args.seed)
     return cfg, env_dict, trainer
 
 

@@ -1,11 +1,14 @@
 """mapdn_torch's checkpoints and training CLI on the CPU: the checkpoint
 round trip, kill-and-resume, generations and 9-digit names of
 tests/test_subsystems.py ported to ``torch.save``, and
-``mapdn_torch.train.main`` end to end at case33."""
+``mapdn_torch.train.main`` end to end at case33 for every ported
+algorithm; and that the port imports neither JAX nor the JAX package."""
 import dataclasses
 import json
 import math
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -190,10 +193,49 @@ def test_cli_layout_logs_and_resume(tmp_path):
     assert resumed["final_policy_param_l1"] == unkilled["final_policy_param_l1"]
 
 
+@pytest.mark.parametrize("alg", ["iddpg", "maddpg", "matd3", "ippo", "iac", "coma",
+                                 "sqddpg", "random"])
+def test_cli_trains_each_ported_algorithm(tmp_path, alg):
+    """One tiny episode with the episode-0 eval and the final save."""
+    out = train.main(["--platform", "cpu", "--alg", alg, "--n-envs", "4",
+                      "--max-steps", "10", "--episodes", "1",
+                      "--save-path", str(tmp_path)])
+    assert out["episodes"] == 1 and os.path.isfile(os.path.join(out["model_dir"], "model.pt"))
+    (stat,) = out["stats"]
+    assert "mean_train_reward" in stat and "mean_test_reward" in stat
+    assert all(math.isfinite(v) for v in stat.values())
+
+
+def test_cli_default_algorithm_runs(tmp_path):
+    """No --alg: train.py's default, maddpg."""
+    out = train.main(["--platform", "cpu", "--n-envs", "4", "--max-steps", "10",
+                      "--episodes", "1", "--save-path", str(tmp_path)])
+    assert out["episodes"] == 1 and "-maddpg-" in out["model_dir"]
+
+
+def test_cli_off_policy_resume_matches_unkilled_run(tmp_path):
+    """maddpg killed after 2 episodes and resumed to 4, against a straight
+    4-episode run: the off-policy ring (40 steps of 4 lanes by the 4th
+    episode, the first update) and the generator that draws its window
+    come back from the checkpoint, so the stats and the policy are equal
+    bit for bit."""
+    flags = ["--platform", "cpu", "--alg", "maddpg", "--n-envs", "4", "--max-steps", "10"]
+    killed, straight = str(tmp_path / "killed"), str(tmp_path / "straight")
+    train.main(flags + ["--episodes", "2", "--save-path", killed])
+    resumed = train.main(flags + ["--episodes", "4", "--resume", "--save-path", killed])
+    unkilled = train.main(flags + ["--episodes", "4", "--save-path", straight])
+    assert resumed["start_episode"] == 2 and resumed["episodes"] == 4
+    assert unkilled["stats"][2:] == resumed["stats"]
+    assert unkilled["stats"][3]["mean_train_value_loss"] > 0.0       # updated
+    assert unkilled["stats"][2]["mean_train_value_loss"] == 0.0      # not yet
+    assert resumed["final_policy_param_l1"] == unkilled["final_policy_param_l1"]
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--alg", "maddpg"], "A7"),
+    (["--alg", "maac"], "A7"),
     (["--alg", "mappo", "--distributed"], "A12"),
     (["--alg", "mappo", "--data-path", "/nonexistent"], "CSV datasets"),
+    (["--alg", "facmaddpg"], "A7"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -204,3 +246,22 @@ def test_cli_runs_on_the_gpu_unless_asked(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--alg", "mappo", "--save-path", str(tmp_path)])
+
+
+def test_port_imports_no_jax():
+    """Every module of mapdn_torch, and chip_smoke.py and profile_torch.py,
+    import in a process where importing jax or mapdn_tpu fails."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = sys.modules['mapdn_tpu'] = None\n"
+        "import mapdn_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(mapdn_torch.__path__, 'mapdn_torch.')]\n"
+        "for name in names + ['chip_smoke', 'profile_torch']:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'mapdn_torch.algos.sqddpg' in names and 'mapdn_torch.train' in names\n"
+        "print(len(names))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 20
