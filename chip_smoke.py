@@ -14,13 +14,14 @@ Phases, each printing one line; any failure exits non-zero:
                   isolation, warm start, NaN lane, false-divergence shares,
                   times and the bound; the kernel's registers and
                   shared memory, its blocks' iterations and the GFLOP it
-                  runs.
+                  runs; then against its plain version at the eval's lane
+                  counts, 1, 10 and 28.
 4. kernel_large - the large-grid NR kernel (csrc/nr_large.cu) against its
                   plain version on the test points of tests/test_pallas.py at
                   case33, case141 and case322, then the same checks as
-                  `kernel` on 4096 env-like case322 lanes; the kernel's
-                  solver beside the torch-op solver on 4096 env-like case141
-                  lanes.
+                  `kernel` on 4096 env-like case322 lanes and on 1 lane (the
+                  single-day eval's); the kernel's solver beside the
+                  torch-op solver on 4096 env-like case141 lanes.
 5. golden       - the committed 48-step golden trajectory replayed through
                   the env on the card (float32 tolerances of tests/test_env.py).
 6. train        - the case33 path: MAPPO on case33 at 8192 lanes (the
@@ -33,14 +34,22 @@ Phases, each printing one line; any failure exits non-zero:
                   more episode.  The large kernel's launches are counted
                   around each run, the eval's apart from the training's.
 8. algos        - the other algorithms of the case33 sweep (iddpg, maddpg,
-                  matd3, ippo, iac, coma, sqddpg) and the random baseline,
-                  one line each: (a) the losses and gradients on the card
-                  against the CPU, float64, same parameters, batch and
-                  draws; (b) one training episode through
-                  ``mapdn_torch.train.main`` with the flags of
-                  train_case33.sh at the 512 lanes of scripts/train_zoo.py,
-                  the episode-0 eval and the final save, the small kernel's
-                  launches counted, the eval's apart.
+                  matd3, ippo, iac, coma, sqddpg, maac, facmaddpg) and the
+                  random baseline, one line each: (a) the losses and
+                  gradients (the mixer's too) on the card against the CPU,
+                  float64, same parameters, batch and draws; (b) one
+                  training episode through ``mapdn_torch.train.main`` with
+                  the flags of train_case33.sh at the 512 lanes of
+                  scripts/train_zoo.py, the episode-0 eval and the final
+                  save, the small kernel's launches counted, the eval's
+                  apart.
+9. eval         - ``mapdn_torch.test.main`` on the model.pt files that
+                  `algos` (maac, case33) and `train322` (mappo, case322)
+                  saved: case33 in ``single``, ``day_sweep`` (28 days) and
+                  ``batch`` (10 episodes), case322 in ``single``, one day of
+                  480 steps each, with seconds, steps, launches and the mean
+                  reward; each single day's record on the card held to the
+                  CPU's for the same model.pt.
 
 The line before the last two is the kernels' JSON record, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -48,8 +57,10 @@ The line before the last two is the kernels' JSON record, then the card's
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,7 +73,9 @@ PEAK_HBM_BYTES = 3.35e12
 N_LANES = 8192          # case33 lanes (bench.py)
 N_LANES_322 = 4096      # case322 lanes (scripts/bench_cases.py:35)
 N_LANES_ALGOS = 512     # case33 sweep lanes (scripts/train_zoo.py N_ENVS)
-ALGOS = ("iddpg", "maddpg", "matd3", "ippo", "iac", "coma", "sqddpg", "random")
+ALGOS = ("iddpg", "maddpg", "matd3", "ippo", "iac", "coma", "sqddpg", "random", "maac",
+         "facmaddpg")
+EVAL_LANES = (1, 10, 28)  # the test CLI's single, batch and day_sweep lanes
 # [algos] (a): the card's losses against the CPU's to this relative
 # tolerance, and each gradient's difference to this share of its global norm
 LOSS_RTOL = 1e-4
@@ -193,6 +206,30 @@ def compare_packed(ctx, a, b, tol):
         lanes_one_iter_apart=int((ok & ~same).sum()),
         packed_max_abs_err_same_iters=worst(packed_err, same),
         packed_max_abs_err=worst(packed_err, ok))
+
+
+def few_lanes_check(solve, plain, grid, load_p, load_q, pv_max, lanes, all_tol):
+    """``solve`` (a kernel's solver) against ``plain`` (its plain version)
+    on ``lanes`` lanes of the test points (every lane converges) and of
+    env-like points: the same converged flags, n_iter within 1, vm/va
+    within 2e-5 on converged lanes that ran the same iterations and
+    ``all_tol`` on all converged lanes.  Returns the largest differences."""
+    out = {}
+    for name, (p, q) in (("test_points", test_point_injections(grid, load_p, load_q, lanes)),
+                         ("env", env_injections(grid, pv_max, load_p, load_q, lanes, seed=lanes))):
+        k, r = solve(grid, p, q), plain(grid, p, q)
+        assert k.vm.shape == (lanes, grid.n_bus), (name, lanes, k.vm.shape)
+        ok = k.converged
+        assert bool((ok == r.converged).all()), (name, lanes)
+        assert name == "env" or bool(ok.all()), (name, lanes)
+        assert int((k.n_iter - r.n_iter).abs().max()) <= 1, (name, lanes)
+        same = ok & (k.n_iter == r.n_iter)
+        err = torch.maximum((k.vm - r.vm).abs().amax(1), (k.va - r.va).abs().amax(1))
+        worst = lambda sel: float(err[sel].max()) if bool(sel.any()) else 0.0
+        assert worst(same) <= 2e-5 and worst(ok) <= all_tol, (name, lanes, err)
+        out[name] = {"n_converged": int(ok.sum()), "max_abs_err_same_iters": worst(same),
+                     "max_abs_err_all": worst(ok)}
+    return out
 
 
 def phase_kernel():
@@ -326,6 +363,10 @@ def phase_kernel():
             for name, res in (("kernel", out), ("plain", ref), ("torch", tor))}
     # lanes the kernel reports diverged that the torch-op solver solved
     fdiv["kernel_vs_torch"] = float((~out.converged & tor.converged).double().mean())
+    # the eval's lane counts: one block of 32 lanes with 31, 22 or 4 dead
+    # ones (1 lane is the corner case of the lane-pair split)
+    eval_lanes = {n_l: few_lanes_check(nr_solve_small, nr_solve_small_ref, grid, load_p,
+                                       load_q, pv_max, n_l, 1e-4) for n_l in EVAL_LANES}
     say("kernel", lanes=N_LANES, max_abs_err_test_points=err_a,
         max_abs_err_same_iters=err_same, max_abs_err_all=err_all,
         packed=cmp, lanes_one_iter_apart=int((ok & ~same).sum()), vm_err_vs_float64=vs64,
@@ -335,7 +376,7 @@ def phase_kernel():
         false_divergence=fdiv, ms=ms, device_ms=device_ms, host_ms=host_ms,
         plain_ms=plain_ms, solver_ms=solver_ms, bound_ms=bound_ms,
         bound_by=bound_by, gflop=flops / 1e9, nnz_y=nnz_y, nnz_w=nnz_w,
-        mbytes=nbytes / 1e6)
+        mbytes=nbytes / 1e6, eval_lanes=eval_lanes)
     return dict(name="nr_small", route="cuda", source="mapdn_torch/csrc/nr_small.cu",
                 replaces="mapdn_tpu/pf/pallas_nr.py:404",
                 max_abs_err=cmp["packed_max_abs_err"], ms=ms, device_ms=device_ms,
@@ -490,6 +531,9 @@ def phase_kernel_large():
                "mean_n_iter": float(r141.n_iter.double().mean()),
                "kernel_solver_ms": cuda_median_ms(lambda: k141(p141, q141)),
                "torch_solver_ms": cuda_median_ms(lambda: nr_solve(g141, p141, q141, ops=ops141))}
+    # the single-day eval's one lane: one block of 8 lanes, 7 of them dead
+    one_lane = few_lanes_check(nr_solve_large, nr_solve_large_ref, grid, load_p, load_q,
+                               pv_max, 1, 1e-3)
 
     say("kernel_large", lanes=lanes, test_points=test_points,
         max_abs_err_same_iters=err_same, max_abs_err_all=err_all,
@@ -501,7 +545,7 @@ def phase_kernel_large():
         false_divergence=fdiv, ms=ms, device_ms=device_ms, host_ms=host_ms,
         plain_ms=plain_ms, solver_ms=solver_ms, bound_ms=bound_ms,
         bound_by=bound_by, gflop=flops / 1e9, nnz_y=nnz_y, nnz_w=nnz_w,
-        mbytes=nbytes / 1e6, case141=case141)
+        mbytes=nbytes / 1e6, case141=case141, eval_lanes={1: one_lane})
     return dict(name="nr_large", route="cuda", source="mapdn_torch/csrc/nr_large.cu",
                 replaces="mapdn_tpu/pf/pallas_nr.py:158",
                 max_abs_err=cmp["packed_max_abs_err"], ms=ms, device_ms=device_ms,
@@ -639,18 +683,17 @@ def case33_flags(alg):
             "--n-envs", str(N_LANES_ALGOS)]
 
 
-def phase_train322(smi):
+def phase_train322(smi, save_path):
     """The case322 path through the CLI, with the flags of train_case322.sh
     at the lane count of scripts/bench_cases.py: one training episode, the
     episode-0 eval and the final save; then a second process-like run that
-    restores the checkpoint and trains one more episode.
+    restores the checkpoint and trains one more episode.  Its model.pt stays
+    under ``save_path`` for ``phase_eval``.
 
     The large kernel's count is set to 0 before each run and read after it.
     The eval's share is read around each ``PGTrainer.evaluate`` call (the
     eval runs 10 lanes, not 4096), so each run's training launches are its
     count less its eval's.  Returns the resumed run's training launches."""
-    import tempfile
-
     from mapdn_torch import train
     from mapdn_torch.learn.trainer import PGTrainer
     from mapdn_torch.pf.fused_nr import nr_solve_large
@@ -665,37 +708,36 @@ def phase_train322(smi):
 
     PGTrainer.evaluate = counted_evaluate
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            flags = case322_flags() + ["--save-path", tmp]
-            runs = []
-            for extra in (["--episodes", "1"], ["--episodes", "2", "--resume"]):
-                torch.cuda.reset_peak_memory_stats()
-                eval_launches.clear()
-                nr_solve_large.launches = 0
-                t0 = time.perf_counter()
-                summary = train.main(flags + extra)
-                wall = time.perf_counter() - t0
-                launches, in_eval = nr_solve_large.launches, sum(eval_launches)
-                trained = len(summary["episode_s"])
-                assert trained == 1, summary["episode_s"]
-                assert launches - in_eval >= 240 * trained, (launches, in_eval)
-                assert in_eval >= 240 * len(summary["eval_s"]), (in_eval, summary["eval_s"])
-                for stat in summary["stats"]:
-                    for k, v in stat.items():
-                        assert math.isfinite(v), (k, v)
-                runs.append(dict(summary, launches=launches - in_eval,
-                                 eval_launches=in_eval, wall_s=wall,
-                                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
-            first, second = runs
-            assert any(k.startswith("mean_test_") for k in first["stats"][0])
-            assert second["start_episode"] == 1 and second["episodes"] == 2
-            model_dir = first["model_dir"]
-            assert os.path.isfile(os.path.join(model_dir, "model.pt"))
-            ckpts = sorted(os.listdir(os.path.join(model_dir, "checkpoint")))
-            assert ckpts == ["ckpt_00000001", "ckpt_00000002"], ckpts
-            with open(os.path.join(first["tb_dir"], "metrics.jsonl")) as fh:
-                logged = [json.loads(line) for line in fh]
-            assert [r["step"] for r in logged] == [1, 2], logged
+        flags = case322_flags() + ["--save-path", save_path]
+        runs = []
+        for extra in (["--episodes", "1"], ["--episodes", "2", "--resume"]):
+            torch.cuda.reset_peak_memory_stats()
+            eval_launches.clear()
+            nr_solve_large.launches = 0
+            t0 = time.perf_counter()
+            summary = train.main(flags + extra)
+            wall = time.perf_counter() - t0
+            launches, in_eval = nr_solve_large.launches, sum(eval_launches)
+            trained = len(summary["episode_s"])
+            assert trained == 1, summary["episode_s"]
+            assert launches - in_eval >= 240 * trained, (launches, in_eval)
+            assert in_eval >= 240 * len(summary["eval_s"]), (in_eval, summary["eval_s"])
+            for stat in summary["stats"]:
+                for k, v in stat.items():
+                    assert math.isfinite(v), (k, v)
+            runs.append(dict(summary, launches=launches - in_eval,
+                             eval_launches=in_eval, wall_s=wall,
+                             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+        first, second = runs
+        assert any(k.startswith("mean_test_") for k in first["stats"][0])
+        assert second["start_episode"] == 1 and second["episodes"] == 2
+        model_dir = first["model_dir"]
+        assert os.path.isfile(os.path.join(model_dir, "model.pt"))
+        ckpts = sorted(os.listdir(os.path.join(model_dir, "checkpoint")))
+        assert ckpts == ["ckpt_00000001", "ckpt_00000002"], ckpts
+        with open(os.path.join(first["tb_dir"], "metrics.jsonl")) as fh:
+            logged = [json.loads(line) for line in fh]
+        assert [r["step"] for r in logged] == [1, 2], logged
     finally:
         PGTrainer.evaluate = evaluate
 
@@ -721,7 +763,8 @@ def loss_check(alg, info):
     """[algos] (a): one algorithm's losses and gradients on the card against
     the CPU, both float64 from the same parameters, on one batch (numpy seed
     0, 4 steps x 64 lanes, case33's widths) with the same explicit draws.
-    Returns the largest relative errors of the losses and the gradients."""
+    Returns the largest relative errors of the losses and the gradients
+    (the policy's, the critic's and a mixer's)."""
     import copy
 
     from mapdn_torch.algos import Transition, make_model
@@ -735,7 +778,8 @@ def loss_check(alg, info):
               for d in ("cpu", "cuda")}
     cpu_state = models["cpu"].init_state(torch.Generator().manual_seed(0))
     states = {"cpu": cpu_state, "cuda": models["cuda"].state_from_modules(
-        copy.deepcopy(cpu_state.policy), copy.deepcopy(cpu_state.value))}
+        copy.deepcopy(cpu_state.policy), copy.deepcopy(cpu_state.value),
+        copy.deepcopy(cpu_state.mixer))}
 
     rng = np.random.RandomState(0)
     t, l = 4, 64
@@ -748,7 +792,8 @@ def loss_check(alg, info):
         next_value=rng.randn(t, l, n), reward=np.repeat(rng.randn(t, l, 1), n, -1),
         next_state=rng.randn(t, l, n, o), done=done, last_step=done,
         last_hid=0.3 * rng.randn(t, l, n, h), hid=0.3 * rng.randn(t, l, n, h_next))
-    draws = {"target_noise": rng.randn(b, n, 1), "sample_noise": rng.randn(s, b, n, 1)}
+    draws = {"target_noise": rng.randn(b, n, 1), "sample_noise": rng.randn(s, b, n, 1),
+             "policy_noise": rng.randn(b, n, 1), "next_noise": rng.randn(b, n, 1)}
     for name in ("policy_positions", "value_positions", "next_positions"):
         draws[name] = rng.rand(b, s, n).argsort(-1)
 
@@ -758,9 +803,12 @@ def loss_check(alg, info):
         avail = torch.ones((n, 1), dtype=torch.float64, device=d)
         pl, vl, _ = model.get_loss(states[d], batch, avail, draws=draws)
         grads = []
-        for loss, module in ((pl, states[d].policy), (vl, states[d].value)):
+        parts = [(pl, states[d].policy), (vl, states[d].value)]
+        if states[d].mixer is not None:
+            parts.append((vl, states[d].mixer))
+        for loss, module in parts:
             params = list(module.parameters())
-            g = (torch.autograd.grad(loss, params) if loss.requires_grad
+            g = (torch.autograd.grad(loss, params, retain_graph=True) if loss.requires_grad
                  else [torch.zeros_like(p) for p in params])
             grads.append([x.cpu() for x in g])
         out[d] = ([float(pl.detach()), float(vl.detach())], grads)
@@ -777,15 +825,15 @@ def loss_check(alg, info):
     return loss_err, grad_err
 
 
-def phase_algos(smi):
+def phase_algos(smi, save_root):
     """The case33 sweep's other algorithms, each checked on the card against
     the CPU (``loss_check``) and trained for one episode through the CLI
     with the flags of train_case33.sh at 512 lanes, the episode-0 eval and
     the final save included; the small kernel's count set to 0 before each
     run and read after it, the eval's share read around ``evaluate`` as in
-    ``phase_train322``.  Every algorithm runs; any failure fails the phase
-    after the last."""
-    import tempfile
+    ``phase_train322``.  Each run saves under ``save_root/<alg>``, where
+    ``phase_eval`` finds maac's model.pt.  Every algorithm runs; any
+    failure fails the phase after the last."""
     import traceback
 
     from mapdn_torch import train
@@ -809,13 +857,12 @@ def phase_algos(smi):
             t0 = time.perf_counter()
             try:
                 loss_err, grad_err = loss_check(alg, info)
-                with tempfile.TemporaryDirectory() as tmp:
-                    torch.cuda.reset_peak_memory_stats()
-                    eval_launches.clear()
-                    nr_solve_small.launches = 0
-                    summary = train.main(case33_flags(alg) + ["--episodes", "1",
-                                                              "--save-path", tmp])
-                    launches, in_eval = nr_solve_small.launches, sum(eval_launches)
+                torch.cuda.reset_peak_memory_stats()
+                eval_launches.clear()
+                nr_solve_small.launches = 0
+                summary = train.main(case33_flags(alg) + [
+                    "--episodes", "1", "--save-path", os.path.join(save_root, alg)])
+                launches, in_eval = nr_solve_small.launches, sum(eval_launches)
                 assert len(summary["episode_s"]) == 1, summary["episode_s"]
                 assert launches - in_eval >= 240, (launches, in_eval)
                 (stat,) = summary["stats"]
@@ -831,6 +878,7 @@ def phase_algos(smi):
                     reward=stat["mean_train_reward"], test_reward=stat["mean_test_reward"],
                     value_loss=stat["mean_train_value_loss"],
                     policy_loss=stat["mean_train_policy_loss"],
+                    mixer_loss=stat.get("mean_train_mixer_loss"),
                     wall_s=time.perf_counter() - t0, card=smi)
             except Exception:
                 traceback.print_exc()
@@ -842,15 +890,133 @@ def phase_algos(smi):
         raise SystemExit(f"chip_smoke: [algos] failed for {failed}")
 
 
+def eval_flags(alg, scenario):
+    """test.py's flags for a model trained with ``case33_flags`` or
+    ``case322_flags`` (the same log name: distributed mode, bowl barrier)."""
+    return ["--alg", alg, "--mode", "distributed", "--scenario", scenario,
+            "--voltage-barrier-type", "bowl"]
+
+
+def single_day_vs_cpu(flags):
+    """The single-day record of one model.pt on the card and on the CPU,
+    each solve's Newton iterations read around the env's solver: vm within
+    1e-4 where both solves of a step took the same iterations, else 1e-3.
+    Returns the largest vm differences and the number of steps whose
+    iterations differ."""
+    from mapdn_torch import test as test_cli
+
+    records, iters = {}, {}
+    for platform in ("cuda", "cpu"):
+        args = test_cli.parse_args(flags + ["--platform", platform])
+        tester, _, loaded = test_cli.build_tester(args)
+        assert loaded
+        solve, its = tester.env._solver, []
+
+        def counted(p, q, vm0=None, va0=None, _solve=solve, _its=its):
+            res = _solve(p, q, vm0, va0)
+            _its.append(res.n_iter)
+            return res
+
+        tester.env._solver = counted
+        records[platform] = tester.run(args.test_day, 23, 2)
+        iters[platform] = [int(x) for x in torch.cat(its).cpu()]
+    gpu, cpu = records["cuda"]["bus_voltage"], records["cpu"]["bus_voltage"]
+    assert len(gpu) == len(cpu) == len(iters["cuda"]) == len(iters["cpu"]), (
+        len(gpu), len(cpu))
+    err = {True: 0.0, False: 0.0}
+    for t, (g, c) in enumerate(zip(gpu, cpu)):
+        same = iters["cuda"][t] == iters["cpu"][t]
+        d = float(np.abs(g - c).max())
+        assert d <= (1e-4 if same else 1e-3), (t, same, d)
+        err[same] = max(err[same], d)
+    return {"vm_max_abs_err_same_iters": err[True], "vm_max_abs_err_other": err[False],
+            "steps_iters_differ": sum(a != b for a, b in zip(iters["cuda"], iters["cpu"]))}
+
+
+def phase_eval(smi, work):
+    """The eval path: ``mapdn_torch.test.main`` on the model.pt that
+    ``phase_algos`` saved for maac (case33) in its three modes and the one
+    ``phase_train322`` saved (mappo, case322) in ``single``, run in
+    ``work`` (test.py writes its pickle to the working directory).  Each
+    mode's kernel count is set to 0 before it and read after it; the env's
+    steps and the reward of the lanes still alive are read around
+    ``VoltageControlEnv.step``.  Then each single day on the card against
+    the CPU (``single_day_vs_cpu``)."""
+    from mapdn_torch import test as test_cli
+    from mapdn_torch.envs.voltage_control import VoltageControlEnv
+    from mapdn_torch.pf.fused_nr import nr_solve_large, nr_solve_small
+
+    step, meter = VoltageControlEnv.step, {}
+
+    def metered_step(self, state, *args, **kw):
+        out = step(self, state, *args, **kw)
+        alive = (~state.terminated).to(out.reward.dtype)
+        meter["steps"] += 1
+        meter["lane_steps"] = meter["lane_steps"] + alive.sum()
+        meter["reward"] = meter["reward"] + (out.reward * alive).sum()
+        return out
+
+    runs = [("case33", "maac", mode, os.path.join(work, "algos", "maac"), nr_solve_small)
+            for mode in ("single", "day_sweep", "batch")]
+    runs.append(("case322", "mappo", "single", os.path.join(work, "case322"), nr_solve_large))
+    cwd = os.getcwd()
+    VoltageControlEnv.step = metered_step
+    os.chdir(work)
+    try:
+        for case, alg, mode, save, kernel in runs:
+            flags = eval_flags(alg, f"{case}_3min_final") + ["--save-path", save]
+            meter.update(steps=0, lane_steps=0.0, reward=0.0)
+            kernel.launches = 0
+            t0 = time.perf_counter()
+            out = test_cli.main(flags + ["--test-mode", mode])
+            wall = time.perf_counter() - t0
+            launches, steps = kernel.launches, meter["steps"]
+            mean_reward = float(meter["reward"] / meter["lane_steps"])
+            lane_steps = float(meter["lane_steps"])
+            record = out["record"]
+            assert out["loaded"] and os.path.isfile(out["out"]), out["out"]
+            lanes = {"single": 1, "day_sweep": 28, "batch": 10}[mode]
+            # one solve a step and one for the reset (a random reset may retry)
+            assert launches == steps + 1 or (mode == "batch" and launches > steps), (
+                launches, steps)
+            assert math.isfinite(mean_reward)
+            extra = {}
+            if mode == "single":
+                assert len(record["bus_voltage"]) == 480 == steps + 1
+                assert all(np.isfinite(x).all() for v in record.values() for x in v)
+                extra = single_day_vs_cpu(flags)
+            else:
+                assert steps == 480
+                assert all(math.isfinite(x) for v in record.values() for x in v), record
+                if mode == "day_sweep":
+                    assert len(record["reward"]) == lanes
+                    extra = {"mean_of_day_rewards": float(np.mean(record["reward"]))}
+                else:
+                    extra = {"q_loss": record["mean_test_q_loss"],
+                             "v_out_of_control": record["mean_test_percentage_of_v_out_of_control"]}
+            say("eval", case=case, alg=alg, mode=mode, lanes=lanes, seconds=out["seconds"],
+                wall_s=wall, steps=steps, lane_steps=lane_steps,
+                kernel=kernel.__name__, kernel_launches=launches, mean_reward=mean_reward,
+                **extra, card=smi)
+    finally:
+        VoltageControlEnv.step = step
+        os.chdir(cwd)
+
+
 def main():
     smi = phase_device()
     phase_build()
     small = phase_kernel()
     large = phase_kernel_large()
     phase_golden()
-    small["launches"] = phase_train(smi)
-    large["launches"] = phase_train322(smi)
-    phase_algos(smi)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        small["launches"] = phase_train(smi)
+        large["launches"] = phase_train322(smi, os.path.join(work, "case322"))
+        phase_algos(smi, os.path.join(work, "algos"))
+        phase_eval(smi, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": [small, large]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,14 @@ active voltage control), for one NVIDIA Hopper GPU.
 
 The module tree mirrors mapdn_tpu's so each file has an obvious counterpart:
 
-    CLI         mapdn_torch.train          (python -m mapdn_torch.train, as train.py)
+    CLIs        mapdn_torch.train, .test   (python -m mapdn_torch.train / .test,
+                                            as train.py / test.py)
     config      mapdn_torch.utils.config   (3-layer YAML merge -> dataclass)
     utils       mapdn_torch.utils          (metrics logging, checkpoints, kernel build)
-    runtime     mapdn_torch.learn          (trainer with eval, replay, losses, sampling)
-    algorithms  mapdn_torch.algos          (8 of the 10 and random; registry)
-    networks    mapdn_torch.nets           (GRU/MLP agents, critics)
+    runtime     mapdn_torch.learn          (trainer with eval, tester, replay, losses,
+                                            sampling)
+    algorithms  mapdn_torch.algos          (the 10 and random; registry)
+    networks    mapdn_torch.nets           (GRU/MLP agents, critics, mixer)
     environment mapdn_torch.envs           (natively batched voltage control)
     physics     mapdn_torch.pf + .grid     (batched NR power flow, Y-bus)
     kernels     mapdn_torch/csrc           (hand-written CUDA, built at first use)

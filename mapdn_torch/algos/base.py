@@ -10,9 +10,11 @@
   (where ``clip_grad_norm_`` adds one);
 * the Transition record (reference model.py:18).
 
-Only the shared-parameter path and deterministic (fixed-std) policies are
-ported.  Learnable state lives in :class:`AlgoState` (modules + optimizer
-states); the model holds static configuration.
+Only the shared-parameter path is ported.  Policies are deterministic with
+a fixed std, or Gaussian with the module's own log-stds
+(``gaussian_policy``).  Learnable state lives in :class:`AlgoState`
+(modules + optimizer states, and a mixer head for algorithms that have
+one); the model holds static configuration.
 
 Randomness in a loss (MATD3's target smoothing, COMA's baseline samples,
 SQDDPG's coalitions) comes from the ``generator`` passed to ``get_loss``,
@@ -24,12 +26,12 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from mapdn_torch.learn.sampling import batchnorm, select_action_continuous
-from mapdn_torch.nets.agents import MLPAgent, RNNAgent
+from mapdn_torch.nets.agents import MLPAgent, MLPAgentGaussian, RNNAgent, RNNAgentGaussian
 from mapdn_torch.nets.critics import MLPCritic
 from mapdn_torch.utils.device import resolve_device
 
@@ -62,13 +64,18 @@ class Transition:
 @dataclasses.dataclass
 class AlgoState:
     """Learnable state of one algorithm: behaviour and target modules and
-    the optimizer states (one second-moment tensor per parameter)."""
+    the optimizer states (one second-moment tensor per parameter).  The
+    mixer head (``mixer``, ``target_mixer``, ``mixer_opt``) is None and
+    empty for an algorithm without a mixer."""
     policy: torch.nn.Module
     value: torch.nn.Module
     target_policy: torch.nn.Module
     target_value: torch.nn.Module
     policy_opt: List[torch.Tensor]
     value_opt: List[torch.Tensor]
+    mixer: Optional[torch.nn.Module] = None
+    target_mixer: Optional[torch.nn.Module] = None
+    mixer_opt: List[torch.Tensor] = dataclasses.field(default_factory=list)
 
 
 @torch.no_grad()
@@ -120,7 +127,11 @@ class MARLModel:
     """Base class; subclasses define the critic and the loss."""
 
     on_policy = False
+    uses_mixer = False
     stores_rollout_value = False
+    # a stores_rollout_value algorithm whose critic needs actions cannot be
+    # evaluated by the trainer's act=None ring value fill (refused there)
+    rollout_value_needs_act = False
     stores_next_hidden = True
 
     def __init__(self, cfg, device=None, param_dtype=torch.float32):
@@ -128,8 +139,6 @@ class MARLModel:
             raise NotImplementedError("only continuous actions are ported")
         if not cfg.shared_params:
             raise NotImplementedError("shared_params: False is not ported yet")
-        if cfg.gaussian_policy:
-            raise NotImplementedError("Gaussian policies are not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.param_dtype = param_dtype
@@ -140,6 +149,8 @@ class MARLModel:
         self.construct_value_net()
         self.policy_tx = ClippedRMSprop(cfg.policy_lrate, cfg.grad_clip_eps)
         self.value_tx = ClippedRMSprop(cfg.value_lrate, cfg.grad_clip_eps)
+        self.mixer_tx = ClippedRMSprop(cfg.mixer_lrate or cfg.value_lrate,
+                                       cfg.grad_clip_eps)
 
     # ------------------------------------------------------------- modules
     def _net_kw(self):
@@ -149,11 +160,17 @@ class MARLModel:
                     init_std=cfg.init_std, param_dtype=self.param_dtype)
 
     def make_policy_module(self):
-        cls = {"mlp": MLPAgent, "rnn": RNNAgent}.get(self.cfg.agent_type)
+        cfg = self.cfg
+        if cfg.gaussian_policy:
+            cls = {"mlp": MLPAgentGaussian, "rnn": RNNAgentGaussian}.get(cfg.agent_type)
+            extra = dict(log_std_min=cfg.LOG_STD_MIN, log_std_max=cfg.LOG_STD_MAX)
+        else:
+            cls = {"mlp": MLPAgent, "rnn": RNNAgent}.get(cfg.agent_type)
+            extra = {}
         if cls is None:
-            raise ValueError(f"unknown agent_type {self.cfg.agent_type}")
-        in_dim = self.obs_dim + (self.n if self.cfg.agent_id else 0)
-        return cls(in_dim, action_dim=self.act_dim, **self._net_kw())
+            raise ValueError(f"unknown agent_type {cfg.agent_type}")
+        in_dim = self.obs_dim + (self.n if cfg.agent_id else 0)
+        return cls(in_dim, action_dim=self.act_dim, **extra, **self._net_kw())
 
     def construct_value_net(self):
         """Subclasses set self.value_in_dim and define make_value_module."""
@@ -164,25 +181,38 @@ class MARLModel:
         another critic override)."""
         return MLPCritic(self.value_in_dim, output_dim=1, **self._net_kw())
 
+    def make_mixer_module(self):
+        """The mixer of an algorithm with ``uses_mixer``."""
+        raise NotImplementedError
+
     # ---------------------------------------------------------------- init
     def init_state(self, generator=None) -> AlgoState:
         """Fresh parameters drawn on the CPU from ``generator`` (so a seed
         gives the same weights on any device), then moved to the device."""
         policy = self.make_policy_module().reset_parameters(generator)
         value = self.make_value_module().reset_parameters(generator)
-        return self.state_from_modules(policy, value)
+        mixer = (self.make_mixer_module().reset_parameters(generator)
+                 if self.uses_mixer else None)
+        return self.state_from_modules(policy, value, mixer)
 
-    def state_from_modules(self, policy, value) -> AlgoState:
+    def state_from_modules(self, policy, value, mixer=None) -> AlgoState:
         """AlgoState around given behaviour modules: targets are copies,
         optimizer states zero."""
-        policy = policy.to(self.device)
-        value = value.to(self.device)
+        if (mixer is not None) != self.uses_mixer:
+            raise ValueError(f"{type(self).__name__} takes "
+                             f"{'a' if self.uses_mixer else 'no'} mixer")
+        target = lambda m: copy.deepcopy(m).requires_grad_(False)
+        policy, value = policy.to(self.device), value.to(self.device)
+        extra = {}
+        if mixer is not None:
+            mixer = mixer.to(self.device)
+            extra = dict(mixer=mixer, target_mixer=target(mixer),
+                         mixer_opt=self.mixer_tx.init(list(mixer.parameters())))
         return AlgoState(
             policy=policy, value=value,
-            target_policy=copy.deepcopy(policy).requires_grad_(False),
-            target_value=copy.deepcopy(value).requires_grad_(False),
+            target_policy=target(policy), target_value=target(value),
             policy_opt=self.policy_tx.init(list(policy.parameters())),
-            value_opt=self.value_tx.init(list(value.parameters())))
+            value_opt=self.value_tx.init(list(value.parameters())), **extra)
 
     def init_hidden(self, batch_size, dtype=torch.float32):
         """(b, n, hid) zero GRU state."""
@@ -209,15 +239,19 @@ class MARLModel:
 
     def policy(self, module, obs, last_hid):
         """(b, n, o) -> means, log_stds, hid (b, n, .) (reference
-        model.py:101-139), fixed std exp(log fixed_policy_std)."""
+        model.py:101-139): the module's log-stds under ``gaussian_policy``,
+        else the fixed std exp(log fixed_policy_std)."""
         b = obs.shape[0]
         flat = self.with_ids(obs).reshape(b * self.n, -1)
         hid_flat = last_hid.reshape(b * self.n, self.hid_dim)
-        means, _, hid = module(flat, hid_flat)
+        means, log_stds, hid = module(flat, hid_flat)
         means = means.reshape(b, self.n, -1)
         hid = (hid_flat if hid is None else hid).reshape(b, self.n, -1)
-        log_stds = torch.full_like(
-            means, math.log(self.cfg.fixed_policy_std))
+        if self.cfg.gaussian_policy:
+            log_stds = log_stds.reshape(b, self.n, -1)
+        else:
+            log_stds = torch.full_like(
+                means, math.log(self.cfg.fixed_policy_std))
         return means, log_stds, hid
 
     def get_actions(self, module, obs, last_hid, *, status, exploration,

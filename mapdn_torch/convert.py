@@ -9,17 +9,25 @@ into ``weight_hh`` (gate order r, z, n), with the ``hn`` bias into
 LayerNorm scale/bias and ``agent_id_embed`` are copied.  Values keep the
 target parameters' dtype.
 
-flax names layers by creation order: in ``MLPAgent``/``MLPCritic`` the
-second layer's Dense is created before the stem's, so ``Dense_1`` is fc1
-and ``Dense_0`` fc2 there.
+flax names layers by creation order: in ``MLPAgent``/``MLPCritic`` (and
+``MLPAgentGaussian``) the second layer's Dense is created before the
+stem's, so ``Dense_1`` is fc1 and ``Dense_0`` fc2 there; the Gaussian
+agents' log-std head is the Dense after the mean head.  ``AttentionCritic``'s
+per-agent layers (``nn.vmap``) hold (n, in, out) kernels, copied as they
+are.  In ``QMixer`` the ``name=`` of an ``nn.Sequential`` does not reach the
+tree: its layers are numbered ``Dense_k`` in creation order (the two-layer
+hypernets ``hyper_w_1`` and ``hyper_w_final``, then ``V``), while a
+one-layer hypernet keeps its name.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from mapdn_torch.nets.agents import MLPAgent, RNNAgent
-from mapdn_torch.nets.critics import CentralVCritic, MLPCritic
+from mapdn_torch.nets.agents import (
+    Dense, MLPAgent, MLPAgentGaussian, RNNAgent, RNNAgentGaussian)
+from mapdn_torch.nets.critics import (
+    AgentDense, AttentionCritic, CentralVCritic, MLPCritic, QMixer)
 
 
 def _p(tree):
@@ -33,6 +41,12 @@ def _set(param, value):
 
 def _dense(mod, tree):
     _set(mod.weight, np.asarray(tree["kernel"]).T)
+    if mod.bias is not None:
+        _set(mod.bias, tree["bias"])
+
+
+def _agent_dense(mod: AgentDense, tree):
+    _set(mod.weight, tree["kernel"])
     _set(mod.bias, tree["bias"])
 
 
@@ -44,6 +58,10 @@ def _norm(mod, tree):
 
 def load_flax_policy(module, params):
     p = _p(params)
+    if isinstance(module, RNNAgentGaussian):
+        _dense(module.log_std_head, p["Dense_2"])
+    elif isinstance(module, MLPAgentGaussian):
+        _dense(module.log_std_head, p["Dense_3"])
     if isinstance(module, RNNAgent):
         _dense(module.fc1, p["Dense_0"])
         _norm(module.norm, p.get("LayerNorm_0"))
@@ -78,14 +96,43 @@ def load_flax_critic(module, params):
         _dense(module.fc1, p["Dense_1"])
         _dense(module.fc2, p["Dense_0"])
         _dense(module.head, p["Dense_2"])
+    elif isinstance(module, AttentionCritic):
+        for name in ("sa_encoders", "s_encoders"):
+            _agent_dense(getattr(module, name), p[name]["Dense_0"])
+        for name in ("critics", "biases"):
+            head = getattr(module, name)
+            _agent_dense(head.fc, p[name]["Dense_0"])
+            _agent_dense(head.out, p[name]["Dense_1"])
+        for name in ("key_proj", "sel_proj", "val_proj"):
+            _dense(getattr(module, name), p[name])
+        return module
     else:
         raise TypeError(f"no flax layout for {type(module).__name__}")
     _norm(module.norm, p.get("LayerNorm_0"))
     return module
 
 
+def load_flax_mixer(module: QMixer, params):
+    p = _p(params)
+    numbered = iter(p[f"Dense_{k}"] for k in range(len(p)) if f"Dense_{k}" in p)
+    for name in ("hyper_w_1", "hyper_w_final"):
+        layer = getattr(module, name)
+        if isinstance(layer, Dense):
+            _dense(layer, p[name])
+        else:
+            for d in (m for m in layer if isinstance(m, Dense)):
+                _dense(d, next(numbered))
+    _dense(module.hyper_b_1, p["hyper_b_1"])
+    for d in (m for m in module.V if isinstance(m, Dense)):
+        _dense(d, next(numbered))
+    if module.gate is not None:
+        _set(module.gate, p["gate"])
+    return module
+
+
 def from_flax(policy_params, value_params, policy, value):
     """Load flax policy and value parameter trees into the port's modules
-    ``policy`` (RNNAgent/MLPAgent) and ``value`` (CentralVCritic/MLPCritic),
-    in place; returns them."""
+    ``policy`` (the deterministic or Gaussian RNN/MLP agents) and ``value``
+    (CentralVCritic, MLPCritic or AttentionCritic), in place; returns them.
+    A mixer's tree goes through :func:`load_flax_mixer`."""
     return load_flax_policy(policy, policy_params), load_flax_critic(value, value_params)

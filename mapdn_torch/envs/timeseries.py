@@ -3,11 +3,12 @@
 The tables are device tensors gathered by a time index inside each env step.
 :func:`synthetic_dataset` draws from ``np.random.RandomState(seed)`` exactly
 as the JAX package does, so the arrays are bitwise the same in float64.
-Reading the real MAPDN CSV data is not ported yet.
+:func:`load_csv_dataset` reads a real MAPDN scenario directory with pandas.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -81,13 +82,34 @@ def synthetic_dataset(base_load_p, base_load_q, pv_capacity, *, days=40,
     return _finalize(pv, load_p, load_q, time_delta, dtype, device)
 
 
+def load_csv_dataset(data_path, *, pv_scale=1.0, demand_scale=1.0,
+                     time_delta=3, dtype=torch.float32, device=None):
+    """A real MAPDN scenario directory: ``pv_active.csv``,
+    ``load_active.csv`` and ``load_reactive.csv``, each a header line and a
+    leading timestamp column, scaled as reference
+    voltage_control_env.py:407-438 scales them."""
+    import pandas as pd
+
+    def read(name, scale):
+        df = pd.read_csv(os.path.join(data_path, name), index_col=None)
+        return df.iloc[:, 1:].to_numpy(dtype=np.float64) * scale
+
+    return _finalize(read("pv_active.csv", pv_scale),
+                     read("load_active.csv", demand_scale),
+                     read("load_reactive.csv", demand_scale),
+                     time_delta, dtype, device)
+
+
 def dataset_for_case(case_name, load_p, load_q, pv_max, *, data_path=None,
                      days=40, seed=0, dtype=torch.float32, device=None,
                      pv_scale=1.0, demand_scale=1.0):
-    """Synthetic data for a case; real CSV data is not ported yet."""
-    if data_path:
-        raise NotImplementedError(
-            "CSV datasets are not ported to mapdn_torch yet; use the "
-            "synthetic dataset (data_path=None)")
+    """Real data when ``data_path`` is a directory holding
+    ``pv_active.csv``, else the synthetic dataset (as the JAX package
+    falls back)."""
+    if data_path and os.path.isdir(data_path) and os.path.exists(
+            os.path.join(data_path, "pv_active.csv")):
+        return load_csv_dataset(data_path, pv_scale=pv_scale,
+                                demand_scale=demand_scale, dtype=dtype,
+                                device=device)
     return synthetic_dataset(load_p, load_q, pv_max, days=days, seed=seed,
                              dtype=dtype, device=device)

@@ -312,15 +312,25 @@ class VoltageControlEnv:
         obs, state = self._obs_and_push_hist(state)
         return state, obs, self.get_state(state)
 
-    def manual_reset(self, day, hour, interval, n_lanes=1, a0=None,
-                     generator=None):
-        """Deterministic start, no noise (voltage_control_env.py:137-176).
-        With ``reset_action`` the reset action comes from ``a0`` or from
-        ``generator`` (the JAX package draws it from PRNGKey(0))."""
-        t0 = torch.full((n_lanes,), interval + hour * self.steps_per_hour
-                        + day * self.steps_per_day, device=self.device)
-        if generator is None and a0 is None and self.cfg.reset_action:
-            generator = torch.Generator(device=self.device).manual_seed(0)
+    def manual_reset(self, day, hour, interval, a0=None, generator=None):
+        """Deterministic start, no noise (voltage_control_env.py:137-176),
+        one lane a day: ``day`` is an int (one lane) or an (L,) tensor of
+        days.  With ``reset_action`` every lane starts
+        from one reset action, ``a0`` (n_sgen,) or one draw from
+        ``generator`` (by default a CPU generator seeded 0, so that a day
+        starts alike on every device): the JAX package draws it from
+        PRNGKey(0) in every lane it vmaps over."""
+        day = torch.as_tensor(day, device=self.device).long().reshape(-1)
+        t0 = interval + hour * self.steps_per_hour + day * self.steps_per_day
+        if self.cfg.reset_action:
+            if a0 is None:
+                if generator is None:
+                    generator = torch.Generator().manual_seed(0)
+                a0 = torch.rand((self.grid.n_sgen,), generator=generator,
+                                dtype=self.dtype, device=generator.device)
+                a0 = a0 * (self.action_high - self.action_low) + self.action_low
+            a0 = torch.as_tensor(a0, device=self.device).to(self.dtype)
+            a0 = a0.reshape(1, -1).expand(t0.shape[0], -1)
         state, _ = self._attempt_reset(t0, False, generator, a0=a0)
         obs, state = self._obs_and_push_hist(state)
         return state, obs, self.get_state(state)
@@ -524,8 +534,9 @@ class VoltageControlEnv:
 def make_env(case="case33", cfg: EnvConfig | None = None, *, data_path=None,
              days=40, seed=0, dtype=torch.float32, device=None,
              pv_scale=1.0, demand_scale=1.0):
-    """Build the env of a named case with synthetic data, on ``device`` (the
-    GPU when None; pass ``device="cpu"`` to run on the CPU)."""
+    """Build the env of a named case on ``device`` (the GPU when None; pass
+    ``device="cpu"`` to run on the CPU), with the MAPDN CSVs of
+    ``data_path`` where it holds them, else with synthetic data."""
     from mapdn_torch.envs.timeseries import dataset_for_case
     from mapdn_torch.grid.cases import make_case
 

@@ -5,11 +5,12 @@ Every ``behaviour_update_freq`` env steps of all ``n_envs`` lanes (one
 chunk), the trainer writes the chunk's transitions to the device-resident
 ring, fills the rollout-time critic values with one whole-ring forward,
 runs ``value_update_epochs`` value steps and ``policy_update_epochs`` policy
-steps on sampled windows, and clears the ring for on-policy algorithms
-(reference model.py:39-70).  Soft target updates fire whenever a chunk
-crosses a ``target_update_freq`` boundary.  Each env step is one batched
-power-flow solve, plus one per reset attempt on steps where lanes
-terminated.
+steps on sampled windows, then, for an algorithm with a mixer,
+``mixer_update_epochs`` mixer steps on the value loss, and clears the ring
+for on-policy algorithms (reference model.py:39-70).  Soft target updates
+fire whenever a chunk crosses a ``target_update_freq`` boundary.  Each env
+step is one batched power-flow solve, plus one per reset attempt on steps
+where lanes terminated.
 
 Transitions are emitted per step and written to the ring once per chunk
 when the chunk refills the whole ring (``chunk_len >= capacity``, the
@@ -24,8 +25,8 @@ device.  ``_train_chunk`` also takes the draws explicitly (the parity tests
 replay the JAX package's key splits): ``draws = {"steps": [{"action_noise":
 (L, n, act), "env": {...}} per step], "value_lanes": (E_v, lanes),
 "value_starts": (E_v,), "value_loss": [the loss's draws per epoch], and the
-same three for "policy"}``, any part of which may be missing (a loss's
-draws are named by its model, e.g. MATD3's ``target_noise``);
+same three for "policy" and "mixer"}``, any part of which may be missing
+(a loss's draws are named by its model, e.g. MATD3's ``target_noise``);
 ``_train_episode`` takes a list of such dicts, one a chunk; and
 ``_eval_rollout`` takes ``draws = {"reset": {"t0", "noise", "a0"},
 "steps": [{"step_noise": ...} per step]}``.
@@ -48,6 +49,7 @@ _UPDATE_KEYS = {
     "value": ("mean_train_value_loss", "mean_train_value_grad_norm"),
     "policy": ("mean_train_policy_loss", "mean_train_policy_grad_norm",
                "mean_train_entropy"),
+    "mixer": ("mean_train_mixer_loss", "mean_train_mixer_grad_norm"),
 }
 
 
@@ -138,11 +140,24 @@ class PGTrainer:
 
     # --------------------------------------------------------------- rollout
     def _rollout_value(self, algo, obs):
-        return self.model.value(algo.value, obs, None)
+        """Per-agent (b, n) value for the ring: the first output of a
+        critic that returns a tuple, the mean over samples of a (b, s, n)
+        one (mapdn_tpu/learn/trainer.py:150-157)."""
+        v = self.model.value(algo.value, obs, None)
+        if isinstance(v, tuple):
+            v = v[0]
+        if v.dim() == 3:
+            v = torch.mean(v, dim=1)
+        return v
 
     def _rollout_values_all(self, algo, states):
         """Rollout values of a whole (T, L, n, o) stack in one critic
-        forward (parameters are constant across the chunk)."""
+        forward (parameters are constant across the chunk); only for
+        critics that take no actions."""
+        if self.model.rollout_value_needs_act:
+            raise ValueError(
+                f"{type(self.model).__name__} stores rollout values but its critic "
+                "needs actions; the ring value fill evaluates act=None critics only")
         t, l = states.shape[0], states.shape[1]
         v = self._rollout_value(algo, states.reshape((t * l,) + tuple(states.shape[2:])))
         return v.reshape(t, l, -1)
@@ -216,14 +231,16 @@ class PGTrainer:
                     start=epoch_draws(which + "_starts", e))
             batch = batch.map(self._upcast)
             loss_kw = dict(generator=generator, draws=epoch_draws(which + "_loss", e))
-            if which == "value":
+            if which in ("value", "mixer"):
+                # the mixer epochs descend the same value loss, with respect
+                # to the mixer's parameters (mapdn_tpu/learn/trainer.py:341-353)
                 _, vl, _ = model.get_loss(algo, batch, self.avail, policy=False, **loss_kw)
-                params = list(algo.value.parameters())
+                params = list(getattr(algo, which).parameters())
                 grads = _grads(vl, params)
                 gn = global_norm(grads)
-                model.value_tx.step(params, grads, algo.value_opt)
-                stats.append({"mean_train_value_loss": vl.detach(),
-                              "mean_train_value_grad_norm": gn})
+                getattr(model, which + "_tx").step(params, grads, getattr(algo, which + "_opt"))
+                stats.append({f"mean_train_{which}_loss": vl.detach(),
+                              f"mean_train_{which}_grad_norm": gn})
             else:
                 pl, _, (means, log_stds) = model.get_loss(
                     algo, batch, self.avail, value=False, **loss_kw)
@@ -246,12 +263,19 @@ class PGTrainer:
                                     epochs=cfg.value_update_epochs, draws=draws)
         stats.update(self._update_epochs(algo, replay, generator, which="policy",
                                          epochs=cfg.policy_update_epochs, draws=draws))
+        stats.update(self._update_epochs(algo, replay, generator, which="mixer",
+                                         epochs=self._mixer_epochs(), draws=draws))
         return stats
+
+    def _mixer_epochs(self):
+        return (self.cfg.mixer_update_epochs or 0) if self.model.uses_mixer else 0
 
     def _soft_update(self, algo: AlgoState):
         tau = self.cfg.target_lr
         soft_update(algo.target_policy, algo.policy, tau)
         soft_update(algo.target_value, algo.value, tau)
+        if algo.mixer is not None:
+            soft_update(algo.target_mixer, algo.mixer, tau)
 
     # ----------------------------------------------------------- train chunk
     @torch.no_grad()
@@ -299,9 +323,11 @@ class PGTrainer:
             if self.model.on_policy:
                 carry.replay = rb.clear(carry.replay)
         else:
-            for which in ("value", "policy"):
-                epochs = getattr(cfg, f"{which}_update_epochs")
-                for k in (_UPDATE_KEYS[which] if epochs > 0 else ()):
+            # zero stats under the keys the update phase would give
+            epochs = {"value": cfg.value_update_epochs,
+                      "policy": cfg.policy_update_epochs, "mixer": self._mixer_epochs()}
+            for which, keys in _UPDATE_KEYS.items():
+                for k in (keys if epochs[which] > 0 else ()):
                     stats[k] = torch.zeros((), device=self.device)
         return carry, stats
 

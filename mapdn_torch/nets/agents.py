@@ -3,6 +3,8 @@
 * fc1 -> optional LayerNorm -> activation  (reference mlp_agent.py:28-31)
 * MLP: fc2 -> activation -> head           (reference mlp_agent.py:32-34)
 * RNN: GRU cell(hid) -> head               (reference rnn_agent.py:27-32)
+* Gaussian heads: a mean head and a log-std head bounded by tanh to
+  [LOG_STD_MIN, LOG_STD_MAX]               (reference rnn_agent_gaussian.py:33-40)
 
 Parameters are held in an explicit ``param_dtype`` (float32 by default, as
 flax's) and cast to the input's dtype in the forward, as flax promotes
@@ -25,6 +27,13 @@ from torch import nn
 _ACT = {"relu": torch.relu, "tanh": torch.tanh}
 
 
+def lecun_normal_(w, fan_in, generator=None):
+    """flax's default kernel init: a normal of variance 1/fan_in truncated
+    at two standard deviations (the std corrected for the truncation)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
 def _init_kernel_(w, init_type, init_std, activation, generator):
     """Dense kernel init: Normal(0, init_std) (reference model.py:173-181),
     or orthogonal with the activation's gain."""
@@ -37,13 +46,22 @@ def _init_kernel_(w, init_type, init_std, activation, generator):
 class Dense(nn.Module):
     """y = x W^T + b with flax-style dtype promotion."""
 
-    def __init__(self, in_features, out_features, param_dtype=torch.float32):
+    def __init__(self, in_features, out_features, param_dtype=torch.float32,
+                 bias=True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_features, in_features, dtype=param_dtype))
-        self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
+        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=param_dtype))
+                     if bias else None)
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+    def reset_lecun_(self, generator=None):
+        """flax's ``nn.Dense`` defaults: lecun-normal kernel, zero bias."""
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
+        if self.bias is not None:
+            self.bias.zero_()
 
 
 class LayerNorm(nn.Module):
@@ -77,12 +95,10 @@ class GRUCell(nn.Module):
         """flax defaults: lecun-normal input kernels, orthogonal recurrent
         kernels, zero biases (per gate block)."""
         h = self.hidden
-        fan_in = self.weight_ih.shape[1]
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
         with torch.no_grad():
             for g in range(3):
-                nn.init.trunc_normal_(self.weight_ih[g * h:(g + 1) * h], 0.0, std,
-                                      -2 * std, 2 * std, generator=generator)
+                lecun_normal_(self.weight_ih[g * h:(g + 1) * h], self.weight_ih.shape[1],
+                              generator)
                 nn.init.orthogonal_(self.weight_hh[g * h:(g + 1) * h], generator=generator)
             self.bias_ih.zero_()
             self.bias_hn.zero_()
@@ -160,3 +176,41 @@ class RNNAgent(_Base):
     def forward(self, x, hidden):
         hidden = self.gru(self.stem(x), hidden)
         return self.head(hidden), None, hidden
+
+
+class _GaussianHead:
+    """A log-std head beside the mean head, squashed by tanh into
+    [log_std_min, log_std_max] (reference rnn_agent_gaussian.py:33-40):
+    log_std = min + (max - min) (tanh(head(h)) + 1) / 2."""
+
+    def _gaussian_init(self, action_dim, log_std_min, log_std_max):
+        self.log_std_min, self.log_std_max = log_std_min, log_std_max
+        self.log_std_head = Dense(self.hid_size, action_dim, self.param_dtype)
+
+    def log_std(self, h):
+        span = self.log_std_max - self.log_std_min
+        return self.log_std_min + 0.5 * span * (torch.tanh(self.log_std_head(h)) + 1.0)
+
+
+class MLPAgentGaussian(_GaussianHead, MLPAgent):
+    """Gaussian MLP policy (reference agents/mlp_agent_gaussian.py:6-39)."""
+
+    def __init__(self, in_dim, action_dim=1, log_std_min=0.0, log_std_max=0.5, **kw):
+        super().__init__(in_dim, action_dim=action_dim, **kw)
+        self._gaussian_init(action_dim, log_std_min, log_std_max)
+
+    def forward(self, x, hidden=None):
+        h = self.act(self.fc2(self.stem(x)))
+        return self.head(h), self.log_std(h), hidden
+
+
+class RNNAgentGaussian(_GaussianHead, RNNAgent):
+    """Gaussian GRU policy (reference agents/rnn_agent_gaussian.py:6-40)."""
+
+    def __init__(self, in_dim, action_dim=1, log_std_min=0.0, log_std_max=0.5, **kw):
+        super().__init__(in_dim, action_dim=action_dim, **kw)
+        self._gaussian_init(action_dim, log_std_min, log_std_max)
+
+    def forward(self, x, hidden):
+        hidden = self.gru(self.stem(x), hidden)
+        return self.head(hidden), self.log_std(hidden), hidden

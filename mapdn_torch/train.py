@@ -41,6 +41,14 @@ def build_env_cfg(env_dict):
     )
 
 
+def log_name_of(args):
+    """The run's directory name under ``model_save/`` and ``tensorboard/``
+    (train.py's and test.py's)."""
+    return "-".join(filter(None, [
+        args.env, args.scenario, args.mode, args.alg,
+        args.voltage_barrier_type, args.alias]))
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Train a MARL agent (PyTorch port).")
     parser.add_argument("--save-path", type=str, default="./")
@@ -140,9 +148,7 @@ def main(argv=None):
     cfg, env_dict, trainer = build_trainer(args)
     device = trainer.device
 
-    log_name = "-".join(filter(None, [
-        args.env, args.scenario, args.mode, args.alg,
-        args.voltage_barrier_type, args.alias]))
+    log_name = log_name_of(args)
     save_path = args.save_path.rstrip("/") + "/"
     model_dir = os.path.join(save_path, "model_save", log_name)
     tb_dir = os.path.join(save_path, "tensorboard", log_name)

@@ -26,6 +26,16 @@ from mapdn_torch.learn.replay import ReplayState
 
 _MODULES = ("policy", "value", "target_policy", "target_value")
 _OPTS = ("policy_opt", "value_opt")
+_MIXER_MODULES = ("mixer", "target_mixer")
+_MIXER_OPTS = ("mixer_opt",)
+
+
+def _names(algo: AlgoState):
+    """The module and optimizer fields of ``algo``: the mixer's when it has
+    one."""
+    mixer = algo.mixer is not None
+    return (_MODULES + (_MIXER_MODULES if mixer else ()),
+            _OPTS + (_MIXER_OPTS if mixer else ()))
 
 
 def _generations(path):
@@ -48,9 +58,10 @@ def _fields(obj):
 
 
 def _algo_payload(algo: AlgoState, optimizer=True):
-    out = {name: getattr(algo, name).state_dict() for name in _MODULES}
+    modules, opts = _names(algo)
+    out = {name: getattr(algo, name).state_dict() for name in modules}
     if optimizer:
-        out.update({name: list(getattr(algo, name)) for name in _OPTS})
+        out.update({name: list(getattr(algo, name)) for name in opts})
     return out
 
 
@@ -65,12 +76,15 @@ def _like(saved, example, what):
 def _algo_from(payload, example: AlgoState) -> AlgoState:
     """A new AlgoState with the saved weights (and optimizer states, where
     saved) in modules shaped like the example's."""
+    modules, opts = _names(example)
+    if set(_MIXER_MODULES) & set(payload) != set(_MIXER_MODULES) & set(modules):
+        raise ValueError("checkpoint's mixer does not match the run's")
     parts = {}
-    for name in _MODULES:
+    for name in modules:
         module = copy.deepcopy(getattr(example, name))
         module.load_state_dict(payload[name])
         parts[name] = module
-    for name in _OPTS:
+    for name in opts:
         ex = getattr(example, name)
         saved = payload.get(name)
         if saved is None:

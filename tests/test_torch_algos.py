@@ -3,10 +3,12 @@ case33's widths (6 agents, obs 38, action 1, GRU hid 64): the JAX
 ``init_state`` parameters (with targets from another key, so a swap of
 behaviour and target shows) carried across with ``convert.from_flax``,
 then on one batch (T = 4, L = 3, numpy seed) the rollout's actions, the
-critic's ``value()``, both losses and their gradients against the policy
-and the value parameters.  The losses' draws (MATD3's target noise, COMA's
-baseline samples, SQDDPG's coalitions) are drawn with ``jax.random`` in
-the JAX code's key-split order and handed to the port.  Agent 2's action
+critic's ``value()`` (MAAC's with its attention regulariser), both losses
+and their gradients against the policy and the value parameters, and for
+FACMADDPG the value loss's gradient against the mixer's.  The losses'
+draws (MATD3's target noise, COMA's baseline samples, SQDDPG's
+coalitions, MAAC's policy and target-policy samples) are drawn with
+``jax.random`` in the JAX code's key-split order and handed to the port.  Agent 2's action
 slot is unavailable, so every mask is exercised."""
 import dataclasses
 
@@ -37,7 +39,8 @@ def _one_blas_thread():
         yield
 
 
-ALGS = ["iddpg", "maddpg", "matd3", "ippo", "iac", "coma", "sqddpg", "random"]
+ALGS = ["iddpg", "maddpg", "matd3", "ippo", "iac", "coma", "sqddpg", "random", "maac",
+        "facmaddpg"]
 N, OBS, HID = 6, 38, 64
 T, L = 4, 3
 OVERRIDES = dict(agent_num=N, obs_size=OBS, action_dim=1, hid_size=HID)
@@ -78,6 +81,9 @@ def loss_draws(alg, key, cfg, b):
         k = jax.random.split(key, 5)
         return {name: positions(kk, b, cfg.sample_size) for name, kk in
                 zip(("policy_positions", "value_positions", "next_positions"), k[2:])}
+    if alg == "maac":                       # maac.py:50-61
+        return {name: np.array(jax.random.normal(k, (b, N, 1), jnp.float64))
+                for name, k in zip(("policy_noise", "next_noise"), jax.random.split(key))}
     return {}
 
 
@@ -89,7 +95,8 @@ def pair(request):
     init = jax.jit(jmodel.init_state)
     jstate, other = f64(init(jax.random.PRNGKey(0))), f64(init(jax.random.PRNGKey(1)))
     jstate = jstate.replace(target_policy_params=other.policy_params,
-                            target_value_params=other.value_params)
+                            target_value_params=other.value_params,
+                            target_mixer_params=other.mixer_params)
 
     tcfg, _ = load_config(alg, overrides=OVERRIDES)
     tmodel = make_model(alg, tcfg, device="cpu", param_dtype=torch.float64)
@@ -99,10 +106,18 @@ def pair(request):
                           jstate.target_value_params)):
         modules[name + "policy"], modules[name + "value"] = convert.from_flax(
             np64(pp), np64(vp), tmodel.make_policy_module(), tmodel.make_value_module())
+    mixers = {}
+    if tmodel.uses_mixer:
+        for name, mp in (("mixer", jstate.mixer_params),
+                         ("target_mixer", jstate.target_mixer_params)):
+            mixers[name] = convert.load_flax_mixer(tmodel.make_mixer_module(), np64(mp))
+    tstate = tmodel.state_from_modules(modules["policy"], modules["value"],
+                                       mixers.get("mixer"))
     tstate = dataclasses.replace(
-        tmodel.state_from_modules(modules["policy"], modules["value"]),
-        target_policy=modules["target_policy"].requires_grad_(False),
+        tstate, target_policy=modules["target_policy"].requires_grad_(False),
         target_value=modules["target_value"].requires_grad_(False))
+    if mixers:
+        tstate.target_mixer = mixers["target_mixer"].requires_grad_(False)
     return alg, jcfg, jmodel, jstate, tmodel, tstate
 
 
@@ -115,6 +130,8 @@ def _as_module(tmodel, tree, which):
     """A flax-layout tree (parameters or gradients) in the port's layout."""
     if which == "policy":
         return convert.load_flax_policy(tmodel.make_policy_module(), np64(tree))
+    if which == "mixer":
+        return convert.load_flax_mixer(tmodel.make_mixer_module(), np64(tree))
     return convert.load_flax_critic(tmodel.make_value_module(), np64(tree))
 
 
@@ -150,9 +167,11 @@ def test_value_matches_jax(pair):
     want = jmodel.value(jstate.value_params, *args)
     with torch.no_grad():
         got = tmodel.value(tstate.value, torch.tensor(obs), torch.tensor(act), **kw)
-    if alg == "matd3":          # the twin critic: (q1, q2)
+    if isinstance(want, tuple):     # matd3's twin (q1, q2); maac's (q, attend_reg)
+        assert isinstance(got, tuple) and len(got) == len(want) == 2
         for i in range(2):
-            _close(got[i], want[i], f"{alg} q{i + 1}")
+            assert tuple(got[i].shape) == tuple(want[i].shape)
+            _close(got[i], want[i], f"{alg} output {i}")
     else:
         assert tuple(got.shape) == tuple(want.shape)
         _close(got, want, alg)
@@ -161,7 +180,7 @@ def test_value_matches_jax(pair):
 def _grads(loss, params):
     if not loss.requires_grad:              # the random baseline's zero loss
         return [torch.zeros_like(p) for p in params]
-    return torch.autograd.grad(loss, params)
+    return torch.autograd.grad(loss, params, retain_graph=True)
 
 
 def test_losses_and_gradients_match_jax(pair):
@@ -172,23 +191,27 @@ def test_losses_and_gradients_match_jax(pair):
     key = jax.random.PRNGKey(7)
     avail = jnp.asarray(AVAIL)
 
-    def jloss(pp, vp):
-        st = jstate.replace(policy_params=pp, value_params=vp)
+    def jloss(pp, vp, mp):
+        st = jstate.replace(policy_params=pp, value_params=vp, mixer_params=mp)
         pl, vl, _ = jmodel.get_loss(st, jbatch, avail, key)
         return pl, vl
 
-    def jloss_and_grads(pp, vp):
-        gp = jax.grad(lambda p: jloss(p, vp)[0])(pp)
-        gv = jax.grad(lambda v: jloss(pp, v)[1])(vp)
-        return jloss(pp, vp), gp, gv
+    def jloss_and_grads(pp, vp, mp):
+        gp = jax.grad(lambda p: jloss(p, vp, mp)[0])(pp)
+        gv = jax.grad(lambda v: jloss(pp, v, mp)[1])(vp)
+        gm = jax.grad(lambda m: jloss(pp, vp, m)[1])(mp)
+        return jloss(pp, vp, mp), gp, gv, gm
 
-    (jpl, jvl), jgp, jgv = jax.jit(jloss_and_grads)(jstate.policy_params,
-                                                    jstate.value_params)
+    (jpl, jvl), jgp, jgv, jgm = jax.jit(jloss_and_grads)(
+        jstate.policy_params, jstate.value_params, jstate.mixer_params)
     draws = loss_draws(alg, key, jcfg, T * L)
     tpl, tvl, _ = tmodel.get_loss(tstate, tbatch, torch.tensor(AVAIL), draws=draws)
     _close(float(tpl.detach()), float(jpl), f"{alg} policy loss")
     _close(float(tvl.detach()), float(jvl), f"{alg} value loss")
-    for loss, which, jtree in ((tpl, "policy", jgp), (tvl, "value", jgv)):
+    parts = [(tpl, "policy", jgp), (tvl, "value", jgv)]
+    if tmodel.uses_mixer:
+        parts.append((tvl, "mixer", jgm))
+    for loss, which, jtree in parts:
         module = getattr(tstate, which)
         grads = _grads(loss, list(module.parameters()))
         want = _as_module(tmodel, jtree, which)

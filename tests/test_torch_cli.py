@@ -1,21 +1,25 @@
-"""mapdn_torch's checkpoints and training CLI on the CPU: the checkpoint
-round trip, kill-and-resume, generations and 9-digit names of
-tests/test_subsystems.py ported to ``torch.save``, and
-``mapdn_torch.train.main`` end to end at case33 for every ported
-algorithm; and that the port imports neither JAX nor the JAX package."""
+"""mapdn_torch's checkpoints and CLIs on the CPU: the checkpoint round
+trip, kill-and-resume, generations and 9-digit names of
+tests/test_subsystems.py ported to ``torch.save``,
+``mapdn_torch.train.main`` end to end at case33 for every algorithm, and
+``mapdn_torch.test.main`` in its three modes on a model that the training
+CLI saved; and that the port imports neither JAX nor the JAX package."""
 import dataclasses
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 from threadpoolctl import threadpool_limits
 
+from mapdn_torch import test as test_cli
 from mapdn_torch import train
-from mapdn_torch.algos import MAPPO
+from mapdn_torch.algos import MAPPO, make_model
 from mapdn_torch.envs import EnvConfig, make_env
 from mapdn_torch.learn.trainer import PGTrainer
 from mapdn_torch.utils.checkpoint import (
@@ -34,17 +38,17 @@ def _one_blas_thread():
         yield
 
 
-def _tiny_trainer(seed=0):
+def _tiny_trainer(seed=0, alg="mappo"):
     env = make_env("case33", EnvConfig(episode_limit=8), days=8,
                    dtype=torch.float32, device="cpu")
     info = env.get_env_info()
-    cfg, _ = load_config("mappo")
+    cfg, _ = load_config(alg)
     cfg = cfg.replace(
         agent_num=info["n_agents"], obs_size=info["obs_shape"],
         action_dim=info["n_actions"], max_steps=8, behaviour_update_freq=4,
         batch_size=4, value_update_epochs=1, policy_update_epochs=1,
         replay_buffer_size=64, n_envs=2, num_eval_episodes=2, hid_size=32)
-    model = MAPPO(cfg, device="cpu")
+    model = MAPPO(cfg, device="cpu") if alg == "mappo" else make_model(alg, cfg, device="cpu")
     return env, model, cfg, PGTrainer(cfg, model, env).setup(seed=seed)
 
 
@@ -54,10 +58,12 @@ def _carry_tensors(carry):
            for f in dataclasses.fields(carry.env_state)}
     out.update(obs=carry.obs, last_hid=carry.last_hid,
                generator=carry.generator.get_state())
-    for name in ("policy", "value", "target_policy", "target_value"):
-        for k, v in getattr(carry.algo, name).state_dict().items():
+    for name in ("policy", "value", "target_policy", "target_value", "mixer",
+                 "target_mixer"):
+        module = getattr(carry.algo, name)
+        for k, v in (module.state_dict().items() if module is not None else ()):
             out[f"algo.{name}.{k}"] = v
-    for name in ("policy_opt", "value_opt"):
+    for name in ("policy_opt", "value_opt", "mixer_opt"):
         for i, v in enumerate(getattr(carry.algo, name)):
             out[f"algo.{name}.{i}"] = v
     for f in dataclasses.fields(carry.replay.data):
@@ -95,6 +101,36 @@ def test_checkpoint_roundtrip(tmp_path):
     stats = trainer.run_episode()
     assert math.isfinite(stats["mean_train_reward"])
     assert "mean_train_policy_loss" in stats
+
+
+def test_checkpoint_roundtrip_with_mixer(tmp_path):
+    """facmaddpg's mixer, mixer target and mixer optimizer state go through
+    save_model / load_model and the resumable checkpoint; a mixer-less
+    model.pt does not load into it."""
+    _, model, _, trainer = _tiny_trainer(alg="facmaddpg")
+    trainer.run_episode()
+    trainer.run_episode()                   # the second episode updates
+    algo = trainer.carry.algo
+    assert float(algo.mixer_opt[0].abs().max()) > 0.0
+
+    mpath = str(tmp_path / "model.pt")
+    save_model(mpath, algo)
+    restored = load_model(mpath, model.init_state(torch.Generator().manual_seed(123)))
+    for name in ("mixer", "target_mixer"):
+        for a, b in zip(getattr(algo, name).parameters(), getattr(restored, name).parameters()):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    cpath = str(tmp_path / "ckpt")
+    save_checkpoint(cpath, trainer.carry, trainer.steps, trainer.episodes)
+    carry2, _, _ = restore_checkpoint(cpath, trainer.carry)
+    _assert_carries_equal(carry2, trainer.carry)
+    trainer.carry = carry2
+    assert math.isfinite(trainer.run_episode()["mean_train_mixer_loss"])
+
+    _, _, _, plain = _tiny_trainer()
+    save_model(str(tmp_path / "plain.pt"), plain.carry.algo)
+    with pytest.raises(ValueError, match="mixer"):
+        load_model(str(tmp_path / "plain.pt"), model.init_state(torch.Generator()))
 
 
 def test_kill_and_resume_matches_unkilled_run(tmp_path):
@@ -232,14 +268,88 @@ def test_cli_off_policy_resume_matches_unkilled_run(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--alg", "maac"], "A7"),
     (["--alg", "mappo", "--distributed"], "A12"),
-    (["--alg", "mappo", "--data-path", "/nonexistent"], "CSV datasets"),
-    (["--alg", "facmaddpg"], "A7"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         train.main(["--platform", "cpu", "--save-path", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--alg", "maac"],
+    ["--alg", "facmaddpg"],
+    ["--alg", "mappo", "--data-path", "/nonexistent"],
+], ids=["maac", "facmaddpg", "data-path-fallback"])
+def test_cli_runs_what_it_used_to_refuse(tmp_path, flags):
+    """maac and facmaddpg train (facmaddpg's mixer epochs among the
+    stats), and a --data-path without CSVs falls back to the synthetic
+    dataset as train.py does: two tiny episodes, the second updating."""
+    out = train.main(["--platform", "cpu", "--n-envs", "4", "--max-steps", "10",
+                      "--episodes", "4", "--save-path", str(tmp_path)] + flags)
+    assert out["episodes"] == 4 and os.path.isfile(os.path.join(out["model_dir"], "model.pt"))
+    assert all(math.isfinite(v) for stat in out["stats"] for v in stat.values())
+    assert out["stats"][3]["mean_train_value_loss"] > 0.0
+    if "facmaddpg" in flags:
+        assert out["stats"][3]["mean_train_mixer_loss"] > 0.0
+        assert out["stats"][0]["mean_train_mixer_loss"] == 0.0        # warm-up
+
+
+TEST_FLAGS = ["--platform", "cpu", "--alg", "maac", "--scenario", "case33_3min_final",
+              "--voltage-barrier-type", "bowl"]
+
+
+@pytest.fixture(scope="module")
+def trained_maac(tmp_path_factory):
+    """A maac model.pt as ``python -m mapdn_torch.train`` saves it."""
+    save = str(tmp_path_factory.mktemp("trained"))
+    train.main(TEST_FLAGS + ["--n-envs", "4", "--max-steps", "10", "--episodes", "1",
+                             "--save-path", save])
+    return save
+
+
+@pytest.mark.parametrize("mode,name,keys", [
+    ("single", "day10", "telemetry"),
+    ("day_sweep", "days10-12", "per_day"),
+    ("batch", "batch", "aggregate"),
+])
+def test_test_cli_evaluates_a_trained_model(trained_maac, tmp_path, monkeypatch,
+                                            mode, name, keys):
+    """Each --test-mode on the saved weights: test.py's pickle in the
+    working directory, under test.py's name, with the JAX PGTester's record
+    layout (mapdn_tpu/learn/tester.py; its values are held to JAX's in
+    tests/test_torch_tester.py)."""
+    from mapdn_tpu.learn.tester import PGTester as JaxPGTester
+
+    monkeypatch.chdir(tmp_path)
+    out = test_cli.main(TEST_FLAGS + ["--save-path", trained_maac, "--test-mode", mode,
+                                      "--sweep-days", "3", "--test-episodes", "3"])
+    assert out["loaded"] and out["device"] == "cpu"
+    log_name = "var_voltage_control-case33_3min_final-distributed-maac-bowl"
+    path = tmp_path / f"test_record_{log_name}_{name}.pickle"
+    assert out["out"] == path.name and os.path.isfile(path)
+    with open(path, "rb") as fh:
+        record = pickle.load(fh)
+    info = {"percentage_of_v_out_of_control", "percentage_of_lower_than_lower_v",
+            "percentage_of_higher_than_upper_v", "totally_controllable_ratio",
+            "average_voltage_deviation", "average_voltage", "max_voltage_drop_deviation",
+            "max_voltage_rise_deviation", "total_line_loss", "q_loss", "destroy"}
+    if keys == "telemetry":         # the reset state and 479 steps of one day
+        assert set(record) == set(JaxPGTester._SNAP_FIELDS)
+        assert all(len(v) == 480 for v in record.values())
+        assert record["bus_voltage"][0].shape == (33,)
+        assert all(np.isfinite(x).all() for v in record.values() for x in v)
+    elif keys == "per_day":
+        assert set(record) == info | {"reward", "days"} and record["days"] == [10, 11, 12]
+        assert all(len(v) == 3 and all(map(math.isfinite, v))
+                   for k, v in record.items() if k != "days")
+    else:
+        assert set(record) == {"mean_test_" + k for k in info}
+        assert all(len(v) == 2 and all(map(math.isfinite, v)) for v in record.values())
+
+
+def test_test_cli_refuses_render(tmp_path):
+    with pytest.raises(NotImplementedError, match="A13"):
+        test_cli.main(TEST_FLAGS + ["--save-path", str(tmp_path), "--render"])
 
 
 def test_cli_runs_on_the_gpu_unless_asked(tmp_path, monkeypatch):
@@ -258,7 +368,9 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(mapdn_torch.__path__, 'mapdn_torch.')]\n"
         "for name in names + ['chip_smoke', 'profile_torch']:\n"
         "    importlib.import_module(name)\n"
-        "assert 'mapdn_torch.algos.sqddpg' in names and 'mapdn_torch.train' in names\n"
+        "assert {'mapdn_torch.algos.sqddpg', 'mapdn_torch.algos.maac',\n"
+        "        'mapdn_torch.algos.facmaddpg', 'mapdn_torch.learn.tester',\n"
+        "        'mapdn_torch.train', 'mapdn_torch.test'} <= set(names)\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,

@@ -1,15 +1,19 @@
 """Training chunks of mapdn_torch's PGTrainer against JAX
-``PGTrainer._train_chunk`` in float64 at case33 for four algorithms of the
-sweep: maddpg, matd3, coma and ippo.
+``PGTrainer._train_chunk`` in float64 at case33 for six algorithms of the
+sweep: maddpg, matd3, coma, ippo, maac and facmaddpg.
 
 As in tests/test_torch_trainer.py: 4 lanes, batch_size 4, update_lanes 2
 (windows gather lanes), 2 value epochs and 1 policy epoch, every draw
 replayed from the JAX key splits (action noise, env step noise, the
 epochs' window starts and lane indices, and the losses' own draws:
-MATD3's target noise, COMA's baseline samples) and handed to the port.
-matd3, coma and ippo run one 5-step chunk on a ring of capacity 4 =
+MATD3's target noise, COMA's baseline samples, MAAC's policy and
+target-policy samples) and handed to the port.
+matd3, coma, ippo and maac run one 5-step chunk on a ring of capacity 4 =
 batch_size refilled by the chunk (the stack-emit path of the 512-lane
-runs).  maddpg runs two chunks as one JAX ``_train_episode``: 60 steps
+runs).  facmaddpg runs two such chunks: the first a warm-up chunk
+(``replay_warmup`` 5, so no update and zero stats, the mixer's included),
+the second with 2 value, 1 policy and 2 mixer epochs, and the soft target
+update of policy, critic and mixer on the 10-step boundary.  maddpg runs two chunks as one JAX ``_train_episode``: 60 steps
 each, the configuration's, on a ring of capacity 80 that the second chunk
 wraps (the off-policy ring survives the chunk and windows start at random
 in it), and the soft target update fires on the 120-step boundary of
@@ -58,6 +62,9 @@ COMMON = dict(n_envs=L, batch_size=BATCH, update_lanes=LANES, value_update_epoch
 RUNS = {"matd3": (5, 1, dict(replay_buffer_size=16)),
         "coma": (5, 1, dict(replay_buffer_size=16)),
         "ippo": (5, 1, dict(replay_buffer_size=16)),
+        "maac": (5, 1, dict(replay_buffer_size=16)),
+        "facmaddpg": (5, 2, dict(replay_buffer_size=16, replay_warmup=5,
+                                 target_update_freq=10, mixer_update_epochs=2)),
         "maddpg": (60, 2, dict(replay_buffer_size=320, target_update_freq=120))}
 
 
@@ -84,8 +91,12 @@ def _lane_noise(env, keys):
 
 
 def _loss_draws(alg, key, cfg, b, n):
-    """A loss's draws from its key (matd3.py:57, coma.py:56, :69-70)."""
-    k2 = jax.random.split(key)[1]
+    """A loss's draws from its key (matd3.py:57, coma.py:56, :69-70,
+    maac.py:50-61)."""
+    k1, k2 = jax.random.split(key)
+    if alg == "maac":
+        return {name: _np(jax.random.normal(k, (b, n, 1), jnp.float64))
+                for name, k in (("policy_noise", k1), ("next_noise", k2))}
     if alg == "matd3":
         return {"target_noise": _np(jax.random.normal(k2, (b, n, 1), jnp.float64))}
     if alg == "coma":
@@ -107,7 +118,8 @@ def _replay_chunk(rng, env, cfg, alg, chunk, size, capacity):
                       "env": {"step_noise": _lane_noise(env, k_step)}})
     rng, k_upd = jax.random.split(rng)
     draws = {"steps": steps}
-    for which, key in zip(("value", "policy"), jax.random.split(k_upd, 3)):
+    phases = ("value", "policy", "mixer") if alg == "facmaddpg" else ("value", "policy")
+    for which, key in zip(phases, jax.random.split(k_upd, 3)):
         lanes, starts, loss = [], [], []
         for k in jax.random.split(key, getattr(cfg, f"{which}_update_epochs")):
             k_samp, k_loss = jax.random.split(k)            # trainer.py:307
@@ -119,6 +131,17 @@ def _replay_chunk(rng, env, cfg, alg, chunk, size, capacity):
         draws.update({f"{which}_lanes": np.stack(lanes), f"{which}_loss": loss,
                       f"{which}_starts": starts or None})
     return rng, draws
+
+
+def _port_algo(tmodel, algo):
+    """The port's AlgoState of a JAX one's behaviour parameters (targets
+    copied, optimizer states zero, as in the JAX ``init_state``)."""
+    tree = lambda t: jax.tree_util.tree_map(_np, t)
+    policy, value = convert.from_flax(tree(algo.policy_params), tree(algo.value_params),
+                                      tmodel.make_policy_module(), tmodel.make_value_module())
+    mixer = (convert.load_flax_mixer(tmodel.make_mixer_module(), tree(algo.mixer_params))
+             if tmodel.uses_mixer else None)
+    return tmodel.state_from_modules(policy, value, mixer)
 
 
 @pytest.fixture(scope="module", params=list(RUNS))
@@ -151,15 +174,22 @@ def run_pair(request):
     ttr = PGTrainer(tcfg, tmodel, tenv)
     assert ttr._ring_capacity == capacity
     assert ttr._chunks_per_episode == chunks
-    policy, value = convert.from_flax(
-        jax.tree_util.tree_map(_np, carry.algo.policy_params),
-        jax.tree_util.tree_map(_np, carry.algo.value_params),
-        tmodel.make_policy_module(), tmodel.make_value_module())
     env_state = EnvState(**{f.name: torch.as_tensor(np.array(getattr(carry.env_state, f.name)))
                             for f in dataclasses.fields(EnvState)})
-    tcarry = ttr.carry_from(env_state, torch.tensor(_np(carry.obs)),
-                            tmodel.state_from_modules(policy, value),
-                            torch.Generator(), torch.tensor(_np(carry.last_hid)))
+
+    def fresh_carry():
+        return ttr.carry_from(env_state, torch.tensor(_np(carry.obs)),
+                              _port_algo(tmodel, carry.algo), torch.Generator(),
+                              torch.tensor(_np(carry.last_hid)))
+
+    if alg == "facmaddpg":
+        # the warm-up chunk alone: no update, and zero stats under every
+        # key the update phase gives, the mixer's included
+        _, warm = ttr._train_chunk(fresh_carry(), draws[0])
+        for k in ("mean_train_value_loss", "mean_train_policy_loss",
+                  "mean_train_mixer_loss", "mean_train_mixer_grad_norm"):
+            assert float(warm[k]) == 0.0, k
+    tcarry = fresh_carry()
     tout, tstats = ttr._train_episode(tcarry, draws)
     init_target = convert.load_flax_policy(
         tmodel.make_policy_module(), jax.tree_util.tree_map(_np, carry.algo.target_policy_params))
@@ -192,31 +222,40 @@ def test_chunks_rollout_and_ring_match_jax(run_pair):
 def test_chunks_update_matches_jax(run_pair):
     alg, tmodel, jout, jstats, tout, tstats, init_target = run_pair
     assert set(tstats) == set(jstats)
-    for k in ("mean_train_value_loss", "mean_train_policy_loss",
-              "mean_train_value_grad_norm", "mean_train_policy_grad_norm",
-              "mean_train_entropy"):
+    keys = ["mean_train_value_loss", "mean_train_policy_loss",
+            "mean_train_value_grad_norm", "mean_train_policy_grad_norm",
+            "mean_train_entropy"]
+    if tmodel.uses_mixer:
+        keys += ["mean_train_mixer_loss", "mean_train_mixer_grad_norm"]
+    for k in keys:
         np.testing.assert_allclose(float(tstats[k]), float(jstats[k]), rtol=1e-8,
                                    atol=1e-9, err_msg=k)
     algo = jout.algo
     pol, val = tmodel.make_policy_module, tmodel.make_value_module
-    for module, tree, make, load in (
-            (tout.algo.policy, algo.policy_params, pol, convert.load_flax_policy),
-            (tout.algo.value, algo.value_params, val, convert.load_flax_critic),
-            (tout.algo.target_policy, algo.target_policy_params, pol,
-             convert.load_flax_policy),
-            (tout.algo.target_value, algo.target_value_params, val,
-             convert.load_flax_critic)):
+    modules = [(tout.algo.policy, algo.policy_params, pol, convert.load_flax_policy),
+               (tout.algo.value, algo.value_params, val, convert.load_flax_critic),
+               (tout.algo.target_policy, algo.target_policy_params, pol,
+                convert.load_flax_policy),
+               (tout.algo.target_value, algo.target_value_params, val,
+                convert.load_flax_critic)]
+    opts = [(tout.algo.value_opt, algo.value_opt[1][0].nu, val, convert.load_flax_critic),
+            (tout.algo.policy_opt, algo.policy_opt[1][0].nu, pol, convert.load_flax_policy)]
+    if tmodel.uses_mixer:
+        mix, load_mix = tmodel.make_mixer_module, convert.load_flax_mixer
+        modules += [(tout.algo.mixer, algo.mixer_params, mix, load_mix),
+                    (tout.algo.target_mixer, algo.target_mixer_params, mix, load_mix)]
+        opts.append((tout.algo.mixer_opt, algo.mixer_opt[1][0].nu, mix, load_mix))
+    for module, tree, make, load in modules:
         want = load(make(), jax.tree_util.tree_map(_np, tree))
         for (name, got), ref in zip(module.named_parameters(), want.parameters()):
             np.testing.assert_allclose(got.detach().numpy(), ref.detach().numpy(),
                                        rtol=0, atol=1e-8, err_msg=f"{alg} {name}")
-    for nu, tree, make, load in (
-            (tout.algo.value_opt, algo.value_opt[1][0].nu, val, convert.load_flax_critic),
-            (tout.algo.policy_opt, algo.policy_opt[1][0].nu, pol, convert.load_flax_policy)):
+    for nu, tree, make, load in opts:
         want = load(make(), jax.tree_util.tree_map(_np, tree))
         for got, ref in zip(nu, want.parameters()):
             np.testing.assert_allclose(got.numpy(), ref.detach().numpy(), rtol=0, atol=1e-8)
-    # the soft update fires on maddpg's 120-step boundary, and only there
+    # the soft update fires on maddpg's 120-step boundary and facmaddpg's
+    # 10-step one, and only there
     moved = max(float((t - i).detach().abs().max()) for t, i in
                 zip(tout.algo.target_policy.parameters(), init_target.parameters()))
-    assert (moved > 0.0) == (alg == "maddpg"), moved
+    assert (moved > 0.0) == (alg in ("maddpg", "facmaddpg")), moved
