@@ -50,6 +50,16 @@ Phases, each printing one line; any failure exits non-zero:
                   480 steps each, with seconds, steps, launches and the mean
                   reward; each single day's record on the card held to the
                   CPU's for the same model.pt.
+10. bench       - ``bench_torch.py`` at its defaults (8192 case33 lanes, one
+                  warm-up and 8 timed MAPPO episodes) in a subprocess: its
+                  JSON line, with a finite median, at least 240 small-kernel
+                  launches an episode and ``vs_baseline`` above 1.
+11. zoo         - ``mapdn_torch.scripts.train_zoo`` for its ``maddpg`` run cut
+                  to 2 episodes, into a temporary directory, the small
+                  kernel's launches counted with the eval's apart; then
+                  ``mapdn_torch.scripts.learning_report.main`` over that
+                  directory, whose random baseline runs 256 episodes on the
+                  card; its reward and ratio beside the JAX package's.
 
 The line before the last two is the kernels' JSON record, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -130,11 +140,11 @@ def phase_device():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         sys.exit(2)
+    from bench_torch import card
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), nvidia_smi=smi,
         torch=torch.__version__, cuda=torch.version.cuda)
@@ -615,33 +625,12 @@ def phase_golden():
     say("golden", steps=gold["n_steps"], max_abs_err=worst)
 
 
-def bench_trainer():
-    """The bench.py configuration: MAPPO on case33 (distributed mode, l1
-    barrier, 40 synthetic days), GRU policy and central critic, 60-step
-    chunks with 10 value epochs and 1 policy epoch on 32-step windows of
-    1024 lanes, bf16 ring."""
-    from mapdn_torch.algos import MAPPO
-    from mapdn_torch.envs import EnvConfig, make_env
-    from mapdn_torch.learn.trainer import PGTrainer
-    from mapdn_torch.utils.config import load_config
-
-    env = make_env("case33", EnvConfig(episode_limit=240), days=40,
-                   dtype=torch.float32)
-    info = env.get_env_info()
-    cfg, _ = load_config("mappo")
-    cfg = cfg.replace(
-        agent_num=info["n_agents"], obs_size=info["obs_shape"],
-        action_dim=info["n_actions"], n_envs=N_LANES,
-        behaviour_update_freq=60, batch_size=32, value_update_epochs=10,
-        policy_update_epochs=1, update_lanes=1024, replay_bf16=True)
-    return PGTrainer(cfg, MAPPO(cfg), env).setup(seed=0)
-
-
 def phase_train(smi):
+    from bench_torch import bench_trainer
     from mapdn_torch.pf.fused_nr import nr_solve_small
 
     t0 = time.perf_counter()
-    trainer = bench_trainer()
+    trainer = bench_trainer(N_LANES)
     trainer.carry, _ = trainer._train_chunk(trainer.carry)   # warm-up chunk
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1003,6 +992,81 @@ def phase_eval(smi, work):
         os.chdir(cwd)
 
 
+def phase_bench(smi):
+    """``bench_torch.py`` at its defaults, in a process of its own as a user
+    runs it; its JSON line held to a finite median, the small kernel on
+    every step and ``vs_baseline`` above 1."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py")], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert math.isfinite(line["value"]) and line["value"] > 0, line
+    assert line["kernel_launches_per_episode"] >= 240, line
+    assert line["vs_baseline"] > 1, line
+    assert len(line["episode_s"]) == 8 and line["n_envs"] == N_LANES, line
+    say("bench", wall_s=time.perf_counter() - t0, **line)
+
+
+# the JAX package's 256-episode random baseline on case33
+# (artifacts/learning/summary.json)
+JAX_RANDOM_REWARD, JAX_RANDOM_RATIO = -0.0814, 0.386
+
+
+def phase_zoo(smi, work):
+    """The zoo's ``maddpg`` run cut to 2 episodes and the learning
+    report over its output, in ``work``: the small kernel's count set to 0
+    before each and read after it, the training's eval launches read around
+    ``PGTrainer.evaluate`` as in ``phase_algos``."""
+    from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+    from mapdn_torch.scripts import learning_report, train_zoo
+
+    out, episodes = os.path.join(work, "learning_torch"), 2
+    evaluate, eval_launches = PGTrainer.evaluate, []
+
+    def counted_evaluate(self):
+        before = nr_solve_small.launches
+        res = evaluate(self)
+        eval_launches.append(nr_solve_small.launches - before)
+        return res
+
+    PGTrainer.evaluate = counted_evaluate
+    try:
+        nr_solve_small.launches = 0
+        t0 = time.perf_counter()
+        train_zoo.main(["maddpg", "--episodes", str(episodes), "--out", out,
+                        "--work", os.path.join(work, "zoo")])
+        zoo_s = time.perf_counter() - t0
+        launches, in_eval = nr_solve_small.launches, sum(eval_launches)
+    finally:
+        PGTrainer.evaluate = evaluate
+    with open(os.path.join(out, "maddpg", "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    assert [r["step"] for r in recs] == [1, 2], recs
+    assert sum("mean_test_reward" in r for r in recs) == 1, recs
+    assert (launches - in_eval) / episodes >= 240, (launches, in_eval)
+
+    nr_solve_small.launches = 0
+    t0 = time.perf_counter()
+    summary = learning_report.main(["--art", out])
+    report_s = time.perf_counter() - t0
+    report_launches = nr_solve_small.launches
+    rnd = summary["random_baseline"]
+    assert all(math.isfinite(v) for v in rnd.values()), rnd
+    assert report_launches >= 240, report_launches
+    assert summary["maddpg"]["n_evals"] == 1
+    say("zoo", run="maddpg", episodes=episodes, zoo_s=zoo_s,
+        kernel_launches_train_per_episode=(launches - in_eval) / episodes,
+        kernel_launches_eval=in_eval, report_s=report_s,
+        report_kernel_launches=report_launches,
+        random_reward=rnd["mean_test_reward"],
+        random_ratio=rnd["mean_test_totally_controllable_ratio"],
+        random_sem=summary["random_baseline_sem"],
+        jax_random_reward=JAX_RANDOM_REWARD, jax_random_ratio=JAX_RANDOM_RATIO, card=smi)
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1015,6 +1079,8 @@ def main():
         large["launches"] = phase_train322(smi, os.path.join(work, "case322"))
         phase_algos(smi, os.path.join(work, "algos"))
         phase_eval(smi, work)
+        phase_bench(smi)
+        phase_zoo(smi, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": [small, large]}))

@@ -5,6 +5,8 @@ The module tree mirrors mapdn_tpu's so each file has an obvious counterpart:
 
     CLIs        mapdn_torch.train, .test   (python -m mapdn_torch.train / .test,
                                             as train.py / test.py)
+    scripts     mapdn_torch.scripts        (the zoo and its learning report, as
+                                            scripts/train_zoo.py, learning_report.py)
     config      mapdn_torch.utils.config   (3-layer YAML merge -> dataclass)
     utils       mapdn_torch.utils          (metrics logging, checkpoints, kernel build)
     runtime     mapdn_torch.learn          (trainer with eval, tester, replay, losses,

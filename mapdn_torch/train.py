@@ -169,6 +169,7 @@ def main(argv=None):
             device, lambda: restore_checkpoint(ckpt_dir, trainer.carry))
         trainer.carry, trainer.steps, trainer.episodes = carry, steps, episodes
         summary["start_episode"] = episodes
+        logger.drop_after(episodes)
         print(f"resumed from {ckpt_dir} at episode {episodes} ({steps} env steps)")
 
     t0 = time.time()

@@ -36,6 +36,26 @@ class MetricsLogger:
                 # reference tag scheme 'data/<stat>' (trainer.py:115-117)
                 self._tb.add_scalar("data/" + k, v, step)
 
+    def drop_after(self, step: int):
+        """Keep only the records up to ``step``: a run resumed from the
+        checkpoint of episode ``step`` logs the episodes after it again, and
+        the killed run's records of those episodes must not stay beside
+        them.  A line cut short by the kill goes too."""
+        path = self._jsonl.name
+        self._jsonl.close()
+        kept = []
+        with open(path) as fh:
+            for line in fh:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if rec["step"] <= step:
+                    kept.append(line if line.endswith("\n") else line + "\n")
+        with open(path, "w") as fh:
+            fh.writelines(kept)
+        self._jsonl = open(path, "a")
+
     def log_config(self, alg_config, env_config):
         """Config dump (reference train.py:107-111 log.txt)."""
         with open(os.path.join(self.log_dir, "log.txt"), "w") as f:

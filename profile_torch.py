@@ -4,7 +4,7 @@
     python3 profile_torch.py [--case case33|case322] [--alg mappo]
                              [--out build/profile_chunk.txt]
 
-Builds a trainer of chip_smoke.py: for case33 MAPPO (the default) the
+Builds a trainer: for case33 MAPPO (the default) bench_torch.py's, the
 bench.py configuration, 8192 lanes in 60-step chunks; for another
 ``--alg`` at case33 the trainer ``mapdn_torch.train`` builds from the flags
 of train_case33.sh at 512 lanes (``python3 profile_torch.py --alg maddpg``:
@@ -33,7 +33,8 @@ import time
 
 import torch
 
-from chip_smoke import bench_trainer, case322_flags, case33_flags
+from bench_torch import bench_trainer
+from chip_smoke import case322_flags, case33_flags
 
 
 def _timed(spans, name, fn, gate=lambda: True):

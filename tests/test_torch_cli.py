@@ -359,18 +359,21 @@ def test_cli_runs_on_the_gpu_unless_asked(tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of mapdn_torch, and chip_smoke.py and profile_torch.py,
-    import in a process where importing jax or mapdn_tpu fails."""
+    """Every module of mapdn_torch, and chip_smoke.py, profile_torch.py and
+    bench_torch.py, import in a process where importing jax or mapdn_tpu
+    fails."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = sys.modules['mapdn_tpu'] = None\n"
         "import mapdn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(mapdn_torch.__path__, 'mapdn_torch.')]\n"
-        "for name in names + ['chip_smoke', 'profile_torch']:\n"
+        "for name in names + ['chip_smoke', 'profile_torch', 'bench_torch']:\n"
         "    importlib.import_module(name)\n"
-        "assert {'mapdn_torch.algos.sqddpg', 'mapdn_torch.algos.maac',\n"
+        "assert ({'mapdn_torch.algos.sqddpg', 'mapdn_torch.algos.maac',\n"
         "        'mapdn_torch.algos.facmaddpg', 'mapdn_torch.learn.tester',\n"
-        "        'mapdn_torch.train', 'mapdn_torch.test'} <= set(names)\n"
+        "        'mapdn_torch.train', 'mapdn_torch.test',\n"
+        "        'mapdn_torch.scripts.train_zoo', 'mapdn_torch.scripts.learning_report'}\n"
+        "       <= set(names))\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,

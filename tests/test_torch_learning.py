@@ -1,0 +1,171 @@
+"""Learning evidence of the port: its zoo's curves against the JAX package's margins.
+
+artifacts/learning_torch/ holds the curves of 400-episode runs of the
+port on one H100 (``python -m mapdn_torch.scripts.train_zoo``: case33,
+512 lanes, seed 7, l1 barrier, 40 synthetic days, the reference's
+cadences), and ``summary.json`` (``python -m
+mapdn_torch.scripts.learning_report``) with each curve's milestones and the
+port's own 256-episode uniform-random-action baseline and its standard
+errors.
+
+The counterpart of tests/test_learning.py over those files: each run's late
+(last-3-evals) reward and totally-controllable ratio must beat the port's
+random baseline by the JAX package's margins, unchanged, and improve over
+its first eval; each raw curve must match its summary and log each episode
+once.
+
+Improvement is asserted on the reward, as tests/test_learning.py does for
+every run but case69's.  coma, iac, ippo, maac and mappo miss it (strict
+xfails, ROADMAP Queue C): each ends within 0.003 of the JAX run's late
+reward but starts above the JAX run's first eval.  Every case33 distributed run of
+the port starts from one seed-7 initial policy (so do the JAX package's
+from theirs), and the port's evaluates at -0.049 before training where the
+JAX package's evaluates at -0.105; the port trained one episode from the
+JAX draw's weights gives the JAX first evals
+(tests/test_torch_first_eval.py).
+
+The port's random baseline must agree with the JAX package's
+(artifacts/learning/summary.json) within 4·√2 standard errors: a
+statistical check of the env's semantics over whole days of random
+control.  Reads only JSON.
+"""
+import json
+import math
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ART = os.path.join(ROOT, "artifacts", "learning_torch")
+
+# run -> (reward margin over random, ratio margin over random), copied from
+# tests/test_learning.py:38-60 for the runs committed here
+MARGINS = {
+    "iddpg": (0.02, 0.20),
+    "maddpg": (0.02, 0.20),
+    "matd3": (0.02, 0.20),
+    "ippo": (0.02, 0.30),
+    "mappo": (0.02, 0.30),
+    "iac": (0.02, 0.30),
+    "coma": (0.02, 0.30),
+    "sqddpg": (0.02, 0.30),
+    "maac": (0.02, 0.30),
+    "facmaddpg": (0.02, 0.20),
+    "maddpg_decentralised": (0.02, 0.20),
+    # case322's synthetic feeder is near-controllable even untrained
+    # (random baseline ratio 0.977): the reward gap is where learning shows
+    "mappo_case322": (0.02, 0.01),
+}
+REQUIRED = ("mappo", "maddpg")
+# checks that the committed curves fail, with their numbers (ROADMAP Queue C)
+_SHARED_START = ("; every case33 run starts from the one seed-7 initial policy, which "
+                 "evaluates at -0.049 before training (the JAX package's at -0.105)")
+XFAIL = {
+    ("facmaddpg", "beats_random"): (
+        "facmaddpg saturates its actions from episode 60 on and stays there: late "
+        "reward -0.1331 and ratio 0.1234 against random -0.0821 and 0.3776"),
+    ("facmaddpg", "improves"): (
+        "facmaddpg: late reward -0.1331 and ratio 0.1234 below its first eval's "
+        "-0.0415 and 0.6171"),
+    ("mappo_case322", "improves"): (
+        "mappo_case322's curve is flat within the eval's noise from the first eval "
+        "on (every bus controlled): late reward -0.0190 against first -0.0186"),
+    ("coma", "improves"): (
+        "coma: late reward -0.0468 below its first eval's -0.0416 (ratio 0.4628 "
+        "to 0.9933)" + _SHARED_START),
+    ("iac", "improves"): (
+        "iac: late reward -0.0503 below its first eval's -0.0444 (ratio 0.6356 "
+        "to 0.8435)" + _SHARED_START),
+    ("ippo", "improves"): (
+        "ippo: late reward -0.0521 below its first eval's -0.0433 (ratio 0.5950 "
+        "to 0.9969)" + _SHARED_START),
+    ("maac", "improves"): (
+        "maac: late reward -0.0510 below its first eval's -0.0395 (ratio 0.4828 "
+        "to 0.9990)" + _SHARED_START),
+    ("mappo", "improves"): (
+        "mappo: late reward -0.0516 below its first eval's -0.0433 (ratio 0.5929 "
+        "to 0.9969)" + _SHARED_START),
+}
+
+
+def _runs(check):
+    return [pytest.param(run, marks=pytest.mark.xfail(strict=True, reason=XFAIL[run, check]))
+            if (run, check) in XFAIL else run for run in sorted(MARGINS)]
+STATS = ("mean_test_reward", "mean_test_totally_controllable_ratio")
+
+
+def _load(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def summary():
+    path = os.path.join(ART, "summary.json")
+    assert os.path.exists(path), (
+        "artifacts/learning_torch/summary.json missing: run python -m "
+        "mapdn_torch.scripts.train_zoo, then python -m "
+        "mapdn_torch.scripts.learning_report")
+    return _load(path)
+
+
+def _baseline_for(summary, run):
+    if run.endswith("_case322"):
+        return summary["random_baseline_case322"]
+    return summary["random_baseline"]
+
+
+def test_required_runs_committed(summary):
+    missing = [r for r in set(REQUIRED) | set(MARGINS) if r not in summary]
+    assert not missing, f"no committed curves for {missing}"
+
+
+@pytest.mark.parametrize("run", _runs("beats_random"))
+def test_trained_beats_random_baseline(summary, run):
+    reward_margin, ratio_margin = MARGINS[run]
+    rnd = _baseline_for(summary, run)
+    late_r = summary[run]["late_mean_test_reward"]
+    late_c = summary[run]["late_mean_test_totally_controllable_ratio"]
+    assert late_r > rnd["mean_test_reward"] + reward_margin, (
+        f"{run}: late eval reward {late_r:.4f} does not beat random "
+        f"{rnd['mean_test_reward']:.4f} by {reward_margin}")
+    assert late_c > rnd["mean_test_totally_controllable_ratio"] + ratio_margin, (
+        f"{run}: late controllable ratio {late_c:.3f} vs random "
+        f"{rnd['mean_test_totally_controllable_ratio']:.3f} margin {ratio_margin}")
+
+
+@pytest.mark.parametrize("run", _runs("improves"))
+def test_curve_improves_over_training(summary, run):
+    s = summary[run]
+    assert s["late_mean_test_reward"] > s["first"]["mean_test_reward"], (
+        f"{run}: no improvement over training")
+
+
+@pytest.mark.parametrize("run", sorted(MARGINS))
+def test_curve_matches_its_summary(summary, run):
+    s = summary[run]
+    assert s["n_episodes"] >= 400
+    path = os.path.join(ROOT, s["metrics_path"])
+    assert os.path.exists(path), s["metrics_path"]
+    with open(path) as fh:
+        recs = [json.loads(line) for line in fh]
+    steps = [r["step"] for r in recs]
+    assert steps == list(range(1, len(recs) + 1)) and steps[-1] == s["n_episodes"]
+    evals = [r for r in recs if "mean_test_reward" in r]
+    assert len(evals) == s["n_evals"]
+    assert evals[0]["mean_test_reward"] == s["first"]["mean_test_reward"]
+    assert evals[-1]["mean_test_reward"] == s["final"]["mean_test_reward"]
+    late = sum(r["mean_test_reward"] for r in evals[-3:]) / len(evals[-3:])
+    assert abs(late - s["late_mean_test_reward"]) < 1e-12
+
+
+@pytest.mark.parametrize("stat", STATS)
+def test_random_baseline_agrees_with_jax(summary, stat):
+    """The two packages' 256-episode baselines, each a mean over
+    independent episodes with different generators: their difference has a
+    standard error of about √2 times the port's."""
+    jax_rnd = _load(os.path.join(ROOT, "artifacts", "learning", "summary.json"))
+    port, sem = summary["random_baseline"][stat], summary["random_baseline_sem"][stat]
+    want = jax_rnd["random_baseline"][stat]
+    assert math.isfinite(port) and 0.0 < sem < 0.05
+    assert abs(port - want) <= 4 * math.sqrt(2) * sem, (stat, port, want, sem)
