@@ -60,10 +60,30 @@ Phases, each printing one line; any failure exits non-zero:
                   ``mapdn_torch.scripts.learning_report.main`` over that
                   directory, whose random baseline runs 256 episodes on the
                   card; its reward and ratio beside the JAX package's.
+12. examples    - ``mapdn_torch.code_examples``: the wrapper's 24 random
+                  steps and the 24 batched steps of 512 lanes, the small
+                  kernel's launches counted for each; then the wrapper's
+                  first 24 steps from ``manual_reset(0, 0, 0)`` under fixed
+                  actions without noise on the card against the CPU (the
+                  eval's single-day tolerances).
+13. episodic    - coma in episodic mode at 512 case33 lanes through the
+                  library (the CLI has no flag for it): a pool of 10
+                  episode slots, 2 episodes with the update at the second
+                  (32 episodes a batch, 10 value and 1 policy epoch) and
+                  the pool cleared after it, then one eval; then one
+                  episode of mappo in episodic mode (the rollout values
+                  filled over the episode).  Seconds, launches, the pool's
+                  bytes and peak memory.
+14. nonshared   - ``shared_params: False``: the losses and gradients of
+                  the nine algorithms that take it on the card against the
+                  CPU, float64, as ``algos`` (a); then one 512-lane case33
+                  training episode each of iddpg and mappo, and that every
+                  agent's slice of the policy moved.
 
 The line before the last two is the kernels' JSON record, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
 """
+import gc
 import json
 import math
 import os
@@ -86,6 +106,7 @@ N_LANES_ALGOS = 512     # case33 sweep lanes (scripts/train_zoo.py N_ENVS)
 ALGOS = ("iddpg", "maddpg", "matd3", "ippo", "iac", "coma", "sqddpg", "random", "maac",
          "facmaddpg")
 EVAL_LANES = (1, 10, 28)  # the test CLI's single, batch and day_sweep lanes
+N_LANES_RANDOM = 256    # the learning report's random baseline (random_episodes)
 # [algos] (a): the card's losses against the CPU's to this relative
 # tolerance, and each gradient's difference to this share of its global norm
 LOSS_RTOL = 1e-4
@@ -373,10 +394,14 @@ def phase_kernel():
             for name, res in (("kernel", out), ("plain", ref), ("torch", tor))}
     # lanes the kernel reports diverged that the torch-op solver solved
     fdiv["kernel_vs_torch"] = float((~out.converged & tor.converged).double().mean())
-    # the eval's lane counts: one block of 32 lanes with 31, 22 or 4 dead
-    # ones (1 lane is the corner case of the lane-pair split)
+    # the other lane counts the main path gives the kernel: the eval's, one
+    # block of 32 lanes with 31, 22 or 4 dead ones (1 lane is the corner
+    # case of the lane-pair split, and the wrapper's), the random
+    # baseline's 256 and the 512 of the sweep, the examples, episodic and
+    # per-agent training
     eval_lanes = {n_l: few_lanes_check(nr_solve_small, nr_solve_small_ref, grid, load_p,
-                                       load_q, pv_max, n_l, 1e-4) for n_l in EVAL_LANES}
+                                       load_q, pv_max, n_l, 1e-4)
+                  for n_l in EVAL_LANES + (N_LANES_RANDOM, N_LANES_ALGOS)}
     say("kernel", lanes=N_LANES, max_abs_err_test_points=err_a,
         max_abs_err_same_iters=err_same, max_abs_err_all=err_all,
         packed=cmp, lanes_one_iter_apart=int((ok & ~same).sum()), vm_err_vs_float64=vs64,
@@ -748,12 +773,13 @@ def phase_train322(smi, save_path):
     return second["launches"]
 
 
-def loss_check(alg, info):
+def loss_check(alg, info, **over):
     """[algos] (a): one algorithm's losses and gradients on the card against
     the CPU, both float64 from the same parameters, on one batch (numpy seed
-    0, 4 steps x 64 lanes, case33's widths) with the same explicit draws.
-    Returns the largest relative errors of the losses and the gradients
-    (the policy's, the critic's and a mixer's)."""
+    0, 4 steps x 64 lanes, case33's widths) with the same explicit draws;
+    ``over`` overrides the configuration.  Returns the largest relative
+    errors of the losses and the gradients (the policy's, the critic's and
+    a mixer's)."""
     import copy
 
     from mapdn_torch.algos import Transition, make_model
@@ -761,7 +787,7 @@ def loss_check(alg, info):
 
     cfg, _ = load_config(alg, scenario="case33_3min_final", overrides=dict(
         agent_num=info["n_agents"], obs_size=info["obs_shape"],
-        action_dim=info["n_actions"]))
+        action_dim=info["n_actions"], **over))
     n, o, h = cfg.agent_num, cfg.obs_size, cfg.hid_size
     models = {d: make_model(alg, cfg, device=d, param_dtype=torch.float64)
               for d in ("cpu", "cuda")}
@@ -886,40 +912,53 @@ def eval_flags(alg, scenario):
             "--voltage-barrier-type", "bowl"]
 
 
-def single_day_vs_cpu(flags):
-    """The single-day record of one model.pt on the card and on the CPU,
-    each solve's Newton iterations read around the env's solver: vm within
-    1e-4 where both solves of a step took the same iterations, else 1e-3.
-    Returns the largest vm differences and the number of steps whose
-    iterations differ."""
-    from mapdn_torch import test as test_cli
+def record_iterations(env):
+    """Wrap ``env``'s solver so that each solve's Newton iterations (a
+    tensor, one per lane) are appended to the returned list."""
+    solve, its = env._solver, []
 
-    records, iters = {}, {}
-    for platform in ("cuda", "cpu"):
-        args = test_cli.parse_args(flags + ["--platform", platform])
-        tester, _, loaded = test_cli.build_tester(args)
-        assert loaded
-        solve, its = tester.env._solver, []
+    def counted(p, q, vm0=None, va0=None):
+        res = solve(p, q, vm0, va0)
+        its.append(res.n_iter)
+        return res
 
-        def counted(p, q, vm0=None, va0=None, _solve=solve, _its=its):
-            res = _solve(p, q, vm0, va0)
-            _its.append(res.n_iter)
-            return res
+    env._solver = counted
+    return its
 
-        tester.env._solver = counted
-        records[platform] = tester.run(args.test_day, 23, 2)
-        iters[platform] = [int(x) for x in torch.cat(its).cpu()]
-    gpu, cpu = records["cuda"]["bus_voltage"], records["cpu"]["bus_voltage"]
-    assert len(gpu) == len(cpu) == len(iters["cuda"]) == len(iters["cpu"]), (
+
+def vm_against_cpu(vms, iters):
+    """One lane's vm, step by step, on the card (``vms["cuda"]``) against
+    the CPU: within 1e-4 where both solves of a step took the same
+    iterations (``iters``, as ``record_iterations`` gives them), else
+    1e-3.  Returns the largest vm differences and the number of steps
+    whose iterations differ."""
+    its = {d: [int(x) for x in torch.cat(v).cpu()] for d, v in iters.items()}
+    gpu, cpu = vms["cuda"], vms["cpu"]
+    assert len(gpu) == len(cpu) == len(its["cuda"]) == len(its["cpu"]), (
         len(gpu), len(cpu))
     err = {True: 0.0, False: 0.0}
     for t, (g, c) in enumerate(zip(gpu, cpu)):
-        same = iters["cuda"][t] == iters["cpu"][t]
+        same = its["cuda"][t] == its["cpu"][t]
         d = float(np.abs(g - c).max())
         assert d <= (1e-4 if same else 1e-3), (t, same, d)
         err[same] = max(err[same], d)
     return {"vm_max_abs_err_same_iters": err[True], "vm_max_abs_err_other": err[False],
-            "steps_iters_differ": sum(a != b for a, b in zip(iters["cuda"], iters["cpu"]))}
+            "steps_iters_differ": sum(a != b for a, b in zip(its["cuda"], its["cpu"]))}
+
+
+def single_day_vs_cpu(flags):
+    """The single-day record of one model.pt on the card and on the CPU,
+    held by ``vm_against_cpu``."""
+    from mapdn_torch import test as test_cli
+
+    vms, iters = {}, {}
+    for platform in ("cuda", "cpu"):
+        args = test_cli.parse_args(flags + ["--platform", platform])
+        tester, _, loaded = test_cli.build_tester(args)
+        assert loaded
+        iters[platform] = record_iterations(tester.env)
+        vms[platform] = tester.run(args.test_day, 23, 2)["bus_voltage"]
+    return vm_against_cpu(vms, iters)
 
 
 def phase_eval(smi, work):
@@ -1067,6 +1106,249 @@ def phase_zoo(smi, work):
         jax_random_reward=JAX_RANDOM_REWARD, jax_random_ratio=JAX_RANDOM_RATIO, card=smi)
 
 
+def phase_examples(smi):
+    """``code_examples`` on the card with the small kernel's launches
+    counted for each example, then the wrapper's first 24 steps from
+    ``manual_reset(0, 0, 0)`` under fixed actions without noise on the card
+    against the CPU: vm within 1e-4 where both solves of a step took the
+    same iterations, else 1e-3 (``vm_against_cpu``)."""
+    from mapdn_torch import code_examples
+    from mapdn_torch.envs import EnvConfig, VoltageControlWrapper
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+
+    nr_solve_small.launches = 0
+    t0 = time.perf_counter()
+    total, oo_steps = code_examples.oo_example()
+    oo_s = time.perf_counter() - t0
+    oo_launches = nr_solve_small.launches
+    assert math.isfinite(total) and oo_launches >= oo_steps + 1, (total, oo_launches)
+
+    nr_solve_small.launches = 0
+    t0 = time.perf_counter()
+    rewards = code_examples.vectorized_example(N_LANES_ALGOS)
+    torch.cuda.synchronize()
+    vec_s = time.perf_counter() - t0
+    vec_launches = nr_solve_small.launches
+    assert tuple(rewards.shape) == (code_examples.STEPS, N_LANES_ALGOS)
+    assert bool(torch.isfinite(rewards).all()) and vec_launches >= code_examples.STEPS + 1
+
+    vms, iters = {}, {}
+    for dev in ("cuda", "cpu"):
+        env = VoltageControlWrapper("case33", EnvConfig(episode_limit=240), days=8,
+                                    device=dev)
+        iters[dev] = record_iterations(env.env)
+        actions = np.random.RandomState(0).uniform(
+            env.action_space.low, env.action_space.high,
+            (code_examples.STEPS, env.env.grid.n_sgen))
+        nr_solve_small.launches = 0
+        t0 = time.perf_counter()
+        env.manual_reset(0, 0, 0)
+        vms[dev] = [env._get_res_bus_v()]
+        for a in actions:
+            reward, _, info = env.step(a, add_noise=False)
+            assert math.isfinite(reward) and all(math.isfinite(v) for v in info.values())
+            vms[dev].append(env._get_res_bus_v())
+        if dev == "cuda":
+            wrapper_step_ms = (time.perf_counter() - t0) * 1e3 / (len(actions) + 1)
+            launches = nr_solve_small.launches
+    assert launches == code_examples.STEPS + 1, launches
+    say("examples", oo_steps=oo_steps, oo_kernel_launches=oo_launches, oo_s=oo_s,
+        oo_return=total, vectorized_lanes=N_LANES_ALGOS, vectorized_steps=code_examples.STEPS,
+        vectorized_kernel_launches=vec_launches, vectorized_s=vec_s,
+        vectorized_mean_reward=float(rewards.mean()),
+        wrapper_steps=code_examples.STEPS, wrapper_kernel_launches=launches,
+        wrapper_ms_per_step=wrapper_step_ms, **vm_against_cpu(vms, iters), card=smi)
+
+
+def library_trainer(alg, **over):
+    """A case33 trainer at the sweep's 512 lanes built through the library,
+    as ``phase_train`` builds bench.py's (neither this port's CLI nor
+    train.py has a flag for ``episodic`` or ``shared_params``): the
+    algorithm's configuration with ``over``, l1 barrier, 40 synthetic
+    days, float32, seed 0."""
+    from mapdn_torch.algos import make_model
+    from mapdn_torch.envs import EnvConfig, make_env
+    from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.utils.config import load_config
+
+    env = make_env("case33", EnvConfig(episode_limit=240), days=40, dtype=torch.float32)
+    info = env.get_env_info()
+    cfg, _ = load_config(alg)
+    cfg = cfg.replace(agent_num=info["n_agents"], obs_size=info["obs_shape"],
+                      action_dim=info["n_actions"], n_envs=N_LANES_ALGOS, **over)
+    return PGTrainer(cfg, make_model(alg, cfg), env).setup(seed=0)
+
+
+def counted_episode(trainer, kernel):
+    """One ``run_episode`` closed by a synchronize, with ``kernel``'s count
+    set to 0 before it: (stats, seconds, launches)."""
+    kernel.launches = 0
+    t0 = time.perf_counter()
+    stats = trainer.run_episode()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for k, v in stats.items():
+        assert math.isfinite(v), (k, v)
+    return stats, dt, kernel.launches
+
+
+def free_memory():
+    """Collect what earlier runs left unreachable (a trainer can sit in a
+    reference cycle) and restart the peak-memory count from here."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def pool_bytes(replay):
+    return sum(getattr(replay.data, name).nbytes for name in vars(replay.data))
+
+
+KEPT_STEPS = (0, 120, 239)   # steps of the first episode held against the pool
+
+
+def episode_pool_check(replay, kept):
+    """The card's episode pool after two episodes (slots 0 and 1; the clear
+    moves the pointer only): the first episode's ``kept`` transitions are in
+    slot 0 exactly as the rollout gave them, and ``sample_episodes`` on the
+    card gives exactly what it gives on a CPU copy of the two slots for the
+    same 32 (slot, lane) draws, as a (T, batch, ...) Transition."""
+    from mapdn_torch.learn import replay as rb
+
+    pool = replay.data
+    assert sorted(kept) == list(KEPT_STEPS), sorted(kept)
+    for t, trans in kept.items():
+        for name, x in vars(trans).items():
+            buf = getattr(pool, name)
+            assert torch.equal(buf[0, t], x.to(buf.dtype)), ("pool write", t, name)
+    rng = np.random.RandomState(0)
+    draws = (torch.as_tensor(rng.randint(0, 2, 32)),
+             torch.as_tensor(rng.randint(0, N_LANES_ALGOS, 32)))
+    card = rb.sample_episodes(replay, 32, draws=draws)
+    host = rb.sample_episodes(rb.ReplayState(data=pool.map(lambda b: b[:2].cpu()), ptr=0,
+                                             size=2), 32, draws=draws)
+    assert tuple(card.reward.shape[:2]) == (240, 32), card.reward.shape
+    for name, x in vars(card).items():
+        assert torch.equal(x.cpu(), getattr(host, name)), ("sample_episodes", name)
+    return {"steps_held": list(KEPT_STEPS), "sampled_episodes": 32, "equal": True}
+
+
+def phase_episodic(smi):
+    """coma in episodic mode at 512 lanes (episodes counted by both
+    cadences, tests/test_algos.py:171): 2 episodes, the update at the
+    second, timed apart around ``_episodic_update``, and the pool cleared
+    after it (coma is on-policy); the pool's writes and ``sample_episodes``
+    held exactly (``episode_pool_check``); then one eval.  Then one episode of mappo
+    in episodic mode, whose pool holds the filled rollout values."""
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+
+    over = dict(episodic=True, behaviour_update_freq=2, target_update_freq=4)
+    free_memory()
+    t0 = time.perf_counter()
+    trainer = library_trainer("coma", **over)
+    setup_s = time.perf_counter() - t0
+    cfg = trainer.cfg
+    assert (cfg.max_steps, cfg.replay_buffer_size, cfg.batch_size) == (240, 5000, 32)
+    assert (cfg.value_update_epochs, cfg.policy_update_epochs) == (10, 1)
+    replay = trainer.carry.replay
+    assert tuple(replay.data.reward.shape[:3]) == (10, 240, N_LANES_ALGOS)
+    coma_bytes = pool_bytes(replay)
+
+    update = trainer._episodic_update
+    update_s = []
+
+    def timed_update(carry, draws=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(carry, draws)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t)
+        return out
+
+    # keep copies of a few of the first episode's transitions as the
+    # rollout gives them, to hold the pool's step-by-step writes against
+    step, calls, kept = trainer._rollout_step, [0], {}
+
+    def kept_step(carry, draws=None):
+        out = step(carry, draws)
+        if calls[0] in KEPT_STEPS:
+            kept[calls[0]] = out[1].map(torch.clone)
+        calls[0] += 1
+        return out
+
+    trainer._episodic_update, trainer._rollout_step = timed_update, kept_step
+    runs = [counted_episode(trainer, nr_solve_small) for _ in range(2)]
+    del trainer._episodic_update, trainer._rollout_step
+    assert "mean_train_value_loss" not in runs[0][0]
+    assert "mean_train_value_loss" in runs[1][0] and len(update_s) == 1
+    assert trainer.carry.replay.size == 0 and trainer.carry.replay.ptr == 0
+    pool_check = episode_pool_check(trainer.carry.replay, kept)
+    nr_solve_small.launches = 0
+    t0 = time.perf_counter()
+    test = trainer.evaluate()
+    eval_s, eval_launches = time.perf_counter() - t0, nr_solve_small.launches
+    assert math.isfinite(test["mean_test_reward"])
+    coma_peak = torch.cuda.max_memory_allocated() / 2**30
+    for _, _, launches in runs:
+        assert launches >= 240, launches
+    del trainer, replay, update, step, kept
+
+    free_memory()
+    mappo = library_trainer("mappo", **over)
+    mappo_stats, mappo_s, mappo_launches = counted_episode(mappo, nr_solve_small)
+    slot = mappo.carry.replay.data
+    assert mappo.carry.replay.size == 1 and mappo_launches >= 240
+    assert bool(torch.isfinite(slot.value[0]).all()) and float(slot.value[0].abs().max()) > 0
+    assert bool(torch.isfinite(slot.next_value[0]).all())
+    say("episodic", alg="coma", n_envs=N_LANES_ALGOS, env_steps=240, setup_s=setup_s,
+        episode_s=[r[1] for r in runs], update_s=update_s[0],
+        env_steps_per_s=[240 * N_LANES_ALGOS / r[1] for r in runs],
+        kernel_launches=[r[2] for r in runs], eval_s=eval_s,
+        kernel_launches_eval=eval_launches, pool_slots=10, pool_bytes=coma_bytes,
+        pool_check=pool_check,
+        peak_mem_gib=coma_peak, reward=[r[0]["mean_train_reward"] for r in runs],
+        value_loss=runs[1][0]["mean_train_value_loss"],
+        policy_loss=runs[1][0]["mean_train_policy_loss"],
+        test_reward=test["mean_test_reward"], mappo_episode_s=mappo_s,
+        mappo_kernel_launches=mappo_launches, mappo_pool_bytes=pool_bytes(mappo.carry.replay),
+        mappo_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        mappo_reward=mappo_stats["mean_train_reward"], card=smi)
+
+
+NONSHARED_ALGS = ("coma", "facmaddpg", "iac", "iddpg", "ippo", "maddpg", "mappo", "matd3",
+                  "sqddpg")
+
+
+def phase_nonshared(smi):
+    """``shared_params: False``: ``loss_check`` of the nine algorithms that
+    take it (tests/test_nonshared.py:21), then one training episode of
+    iddpg and mappo at 512 lanes, each agent's largest policy change."""
+    from mapdn_torch.envs import EnvConfig, make_env
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+
+    info = make_env("case33", EnvConfig(), days=8, device="cpu").get_env_info()
+    errs = {alg: loss_check(alg, info, shared_params=False) for alg in NONSHARED_ALGS}
+    train = {}
+    for alg in ("iddpg", "mappo"):
+        free_memory()
+        trainer = library_trainer(alg, shared_params=False)
+        before = [p.detach().clone() for p in trainer.carry.algo.policy.parameters()]
+        stats, dt, launches = counted_episode(trainer, nr_solve_small)
+        moved = torch.stack([(p.detach() - q).flatten(1).abs().amax(1) for p, q in
+                             zip(trainer.carry.algo.policy.parameters(), before)]).amax(0)
+        assert moved.shape == (info["n_agents"],) and bool((moved > 0).all()), moved
+        assert launches >= 240, launches
+        train[alg] = dict(episode_s=dt, env_steps_per_s=240 * N_LANES_ALGOS / dt,
+                          kernel_launches=launches,
+                          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          policy_moved_min=float(moved.min()),
+                          reward=stats["mean_train_reward"],
+                          value_loss=stats["mean_train_value_loss"])
+    say("nonshared", loss_max_rel_err=max(e[0] for e in errs.values()),
+        grad_max_rel_err=max(e[1] for e in errs.values()),
+        errs={alg: list(e) for alg, e in errs.items()}, n_envs=N_LANES_ALGOS,
+        train=train, card=smi)
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1081,6 +1363,9 @@ def main():
         phase_eval(smi, work)
         phase_bench(smi)
         phase_zoo(smi, work)
+        phase_examples(smi)
+        phase_episodic(smi)
+        phase_nonshared(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": [small, large]}))

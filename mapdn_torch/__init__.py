@@ -5,15 +5,19 @@ The module tree mirrors mapdn_tpu's so each file has an obvious counterpart:
 
     CLIs        mapdn_torch.train, .test   (python -m mapdn_torch.train / .test,
                                             as train.py / test.py)
+    examples    mapdn_torch.code_examples  (python -m mapdn_torch.code_examples, as
+                                            code_examples.py)
     scripts     mapdn_torch.scripts        (the zoo and its learning report, as
                                             scripts/train_zoo.py, learning_report.py)
     config      mapdn_torch.utils.config   (3-layer YAML merge -> dataclass)
     utils       mapdn_torch.utils          (metrics logging, checkpoints, kernel build)
-    runtime     mapdn_torch.learn          (trainer with eval, tester, replay, losses,
-                                            sampling)
+    runtime     mapdn_torch.learn          (trainer with eval, transition and episodic
+                                            modes; tester, replay, losses, sampling)
     algorithms  mapdn_torch.algos          (the 10 and random; registry)
-    networks    mapdn_torch.nets           (GRU/MLP agents, critics, mixer)
-    environment mapdn_torch.envs           (natively batched voltage control)
+    networks    mapdn_torch.nets           (GRU/MLP agents, critics, mixer; shared or
+                                            per-agent parameters)
+    environment mapdn_torch.envs           (natively batched voltage control; the
+                                            PyMARL wrapper VoltageControlWrapper)
     physics     mapdn_torch.pf + .grid     (batched NR power flow, Y-bus)
     kernels     mapdn_torch/csrc           (hand-written CUDA, built at first use)
 

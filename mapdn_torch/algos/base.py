@@ -10,9 +10,12 @@
   (where ``clip_grad_norm_`` adds one);
 * the Transition record (reference model.py:18).
 
-Only the shared-parameter path is ported.  Policies are deterministic with
-a fixed std, or Gaussian with the module's own log-stds
-(``gaussian_policy``).  Learnable state lives in :class:`AlgoState`
+Under ``shared_params: False`` the policy and the critic are per-agent
+modules (``per_agent=n``: every parameter has a leading agent axis, as the
+JAX package's stacked trees of mapdn_tpu/algos/base.py:185-214), applied
+to (b, n, .) inputs agent by agent; a mixer stays shared.  Policies are
+deterministic with a fixed std, or Gaussian with the module's own
+log-stds (``gaussian_policy``).  Learnable state lives in :class:`AlgoState`
 (modules + optimizer states, and a mixer head for algorithms that have
 one); the model holds static configuration.
 
@@ -137,8 +140,6 @@ class MARLModel:
     def __init__(self, cfg, device=None, param_dtype=torch.float32):
         if not cfg.continuous:
             raise NotImplementedError("only continuous actions are ported")
-        if not cfg.shared_params:
-            raise NotImplementedError("shared_params: False is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.param_dtype = param_dtype
@@ -146,6 +147,8 @@ class MARLModel:
         self.obs_dim = cfg.obs_size
         self.act_dim = cfg.action_dim
         self.hid_dim = cfg.hid_size
+        # None: one set of parameters for all agents; else per-agent modules
+        self.per_agent = None if cfg.shared_params else self.n
         self.construct_value_net()
         self.policy_tx = ClippedRMSprop(cfg.policy_lrate, cfg.grad_clip_eps)
         self.value_tx = ClippedRMSprop(cfg.value_lrate, cfg.grad_clip_eps)
@@ -170,16 +173,19 @@ class MARLModel:
         if cls is None:
             raise ValueError(f"unknown agent_type {cfg.agent_type}")
         in_dim = self.obs_dim + (self.n if cfg.agent_id else 0)
-        return cls(in_dim, action_dim=self.act_dim, **extra, **self._net_kw())
+        return cls(in_dim, action_dim=self.act_dim, per_agent=self.per_agent, **extra,
+                   **self._net_kw())
 
     def construct_value_net(self):
         """Subclasses set self.value_in_dim and define make_value_module."""
         raise NotImplementedError
 
     def make_value_module(self):
-        """An MLP critic over ``value_in_dim`` features (subclasses with
-        another critic override)."""
-        return MLPCritic(self.value_in_dim, output_dim=1, **self._net_kw())
+        """An MLP critic over ``value_in_dim`` features, per agent under
+        ``shared_params: False`` (subclasses with another critic
+        override)."""
+        return MLPCritic(self.value_in_dim, output_dim=1, per_agent=self.per_agent,
+                         **self._net_kw())
 
     def make_mixer_module(self):
         """The mixer of an algorithm with ``uses_mixer``."""
@@ -239,17 +245,12 @@ class MARLModel:
 
     def policy(self, module, obs, last_hid):
         """(b, n, o) -> means, log_stds, hid (b, n, .) (reference
-        model.py:101-139): the module's log-stds under ``gaussian_policy``,
-        else the fixed std exp(log fixed_policy_std)."""
-        b = obs.shape[0]
-        flat = self.with_ids(obs).reshape(b * self.n, -1)
-        hid_flat = last_hid.reshape(b * self.n, self.hid_dim)
-        means, log_stds, hid = module(flat, hid_flat)
-        means = means.reshape(b, self.n, -1)
-        hid = (hid_flat if hid is None else hid).reshape(b, self.n, -1)
-        if self.cfg.gaussian_policy:
-            log_stds = log_stds.reshape(b, self.n, -1)
-        else:
+        model.py:101-139): the agent ids appended, then one forward of the
+        (b, n, .) rows, shared or per agent; the module's log-stds under
+        ``gaussian_policy``, else the fixed std exp(log fixed_policy_std);
+        an MLP agent's hid is ``last_hid``."""
+        means, log_stds, hid = module(self.with_ids(obs), last_hid)
+        if not self.cfg.gaussian_policy:
             log_stds = torch.full_like(
                 means, math.log(self.cfg.fixed_policy_std))
         return means, log_stds, hid
@@ -271,10 +272,9 @@ class MARLModel:
         raise NotImplementedError
 
     def apply_critic(self, module, inputs):
-        """The critic on per-agent inputs (b, n, d) -> (b, n), one (b*n, d)
-        forward (shared parameters)."""
-        b, n = inputs.shape[0], inputs.shape[1]
-        return module(inputs.reshape(b * n, -1)).reshape(b, n)
+        """The critic on per-agent inputs (b, n, d) -> (b, n): one forward,
+        with shared or per-agent parameters (mapdn_tpu/algos/base.py:205-214)."""
+        return module(inputs)[..., 0]
 
     def next_policy(self, state: AlgoState):
         """The policy that bootstraps next-state actions: the behaviour one

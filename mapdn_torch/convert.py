@@ -7,7 +7,11 @@ stack into ``weight_ih``/``bias_ih`` and its ``hr/hz/hn`` recurrent kernels
 into ``weight_hh`` (gate order r, z, n), with the ``hn`` bias into
 ``bias_hn`` (flax has no r/z hidden biases and neither has the port);
 LayerNorm scale/bias and ``agent_id_embed`` are copied.  Values keep the
-target parameters' dtype.
+target parameters' dtype.  A per-agent module (``per_agent=n``) takes the
+JAX package's stacked tree of ``shared_params: False``: every leaf has a
+leading n axis and the names are unchanged; its layers hold flax's
+layout, so Dense kernels and LayerNorm leaves are copied as they are and
+the GRU's gate kernels are set side by side on the last axis.
 
 flax names layers by creation order: in ``MLPAgent``/``MLPCritic`` (and
 ``MLPAgentGaussian``) the second layer's Dense is created before the
@@ -25,9 +29,9 @@ import numpy as np
 import torch
 
 from mapdn_torch.nets.agents import (
-    Dense, MLPAgent, MLPAgentGaussian, RNNAgent, RNNAgentGaussian)
+    AgentDense, AgentGRUCell, Dense, MLPAgent, MLPAgentGaussian, RNNAgent, RNNAgentGaussian)
 from mapdn_torch.nets.critics import (
-    AgentDense, AttentionCritic, CentralVCritic, MLPCritic, QMixer)
+    AttentionCritic, CentralVCritic, MLPCritic, QMixer, RNNCritic)
 
 
 def _p(tree):
@@ -40,20 +44,40 @@ def _set(param, value):
 
 
 def _dense(mod, tree):
-    _set(mod.weight, np.asarray(tree["kernel"]).T)
+    """A Dense layer, or a per-agent one whose (n, in, out) kernels are
+    flax's stacked layout."""
+    kernel = np.asarray(tree["kernel"])
+    _set(mod.weight, kernel if isinstance(mod, AgentDense) else kernel.T)
     if mod.bias is not None:
         _set(mod.bias, tree["bias"])
-
-
-def _agent_dense(mod: AgentDense, tree):
-    _set(mod.weight, tree["kernel"])
-    _set(mod.bias, tree["bias"])
 
 
 def _norm(mod, tree):
     if mod is not None:
         _set(mod.weight, tree["scale"])
         _set(mod.bias, tree["bias"])
+
+
+def _gru(mod, g):
+    """flax's six gate Dense layers into a cell: rows r, z, n of the
+    transposed kernels, or for a per-agent cell the stacked kernels side by
+    side on the last axis."""
+    stacked = isinstance(mod, AgentGRUCell)
+    kernel = (lambda k: np.asarray(g[k]["kernel"])) if stacked else (
+        lambda k: np.asarray(g[k]["kernel"]).T)
+    cat = lambda xs: np.concatenate(list(xs), axis=-1 if stacked else 0)
+    _set(mod.weight_ih, cat(kernel(k) for k in ("ir", "iz", "in")))
+    _set(mod.bias_ih, cat(np.asarray(g[k]["bias"]) for k in ("ir", "iz", "in")))
+    _set(mod.weight_hh, cat(kernel(k) for k in ("hr", "hz", "hn")))
+    _set(mod.bias_hn, g["hn"]["bias"])
+
+
+def _rnn(module, p):
+    """Stem, GRU cell and head of ``RNNAgent`` and ``RNNCritic``."""
+    _dense(module.fc1, p["Dense_0"])
+    _norm(module.norm, p.get("LayerNorm_0"))
+    _gru(module.gru, p["GRUCell_0"])
+    _dense(module.head, p["Dense_1"])
 
 
 def load_flax_policy(module, params):
@@ -63,17 +87,7 @@ def load_flax_policy(module, params):
     elif isinstance(module, MLPAgentGaussian):
         _dense(module.log_std_head, p["Dense_3"])
     if isinstance(module, RNNAgent):
-        _dense(module.fc1, p["Dense_0"])
-        _norm(module.norm, p.get("LayerNorm_0"))
-        g = p["GRUCell_0"]
-        cat = lambda *xs: np.concatenate([np.asarray(x) for x in xs])
-        _set(module.gru.weight_ih, cat(*(np.asarray(g[k]["kernel"]).T
-                                         for k in ("ir", "iz", "in"))))
-        _set(module.gru.bias_ih, cat(*(g[k]["bias"] for k in ("ir", "iz", "in"))))
-        _set(module.gru.weight_hh, cat(*(np.asarray(g[k]["kernel"]).T
-                                         for k in ("hr", "hz", "hn"))))
-        _set(module.gru.bias_hn, g["hn"]["bias"])
-        _dense(module.head, p["Dense_1"])
+        _rnn(module, p)
     elif isinstance(module, MLPAgent):
         _dense(module.fc1, p["Dense_1"])
         _norm(module.norm, p.get("LayerNorm_0"))
@@ -96,13 +110,16 @@ def load_flax_critic(module, params):
         _dense(module.fc1, p["Dense_1"])
         _dense(module.fc2, p["Dense_0"])
         _dense(module.head, p["Dense_2"])
+    elif isinstance(module, RNNCritic):
+        _rnn(module, p)
+        return module
     elif isinstance(module, AttentionCritic):
         for name in ("sa_encoders", "s_encoders"):
-            _agent_dense(getattr(module, name), p[name]["Dense_0"])
+            _dense(getattr(module, name), p[name]["Dense_0"])
         for name in ("critics", "biases"):
             head = getattr(module, name)
-            _agent_dense(head.fc, p[name]["Dense_0"])
-            _agent_dense(head.out, p[name]["Dense_1"])
+            _dense(head.fc, p[name]["Dense_0"])
+            _dense(head.out, p[name]["Dense_1"])
         for name in ("key_proj", "sel_proj", "val_proj"):
             _dense(getattr(module, name), p[name])
         return module
@@ -133,6 +150,7 @@ def load_flax_mixer(module: QMixer, params):
 def from_flax(policy_params, value_params, policy, value):
     """Load flax policy and value parameter trees into the port's modules
     ``policy`` (the deterministic or Gaussian RNN/MLP agents) and ``value``
-    (CentralVCritic, MLPCritic or AttentionCritic), in place; returns them.
+    (CentralVCritic, MLPCritic, RNNCritic or AttentionCritic), in place;
+    returns them.
     A mixer's tree goes through :func:`load_flax_mixer`."""
     return load_flax_policy(policy, policy_params), load_flax_critic(value, value_params)

@@ -1,10 +1,13 @@
-"""Device-resident ring replay buffer for vectorized rollouts (PyTorch port
-of mapdn_tpu/learn/replay.py, transition mode).
+"""Device-resident replay buffers for vectorized rollouts (PyTorch port of
+mapdn_tpu/learn/replay.py).
 
-The buffer is a :class:`Transition` of ``(capacity, n_env, ...)`` tensors;
-``sample_window`` draws a time-contiguous window of ``batch_size`` steps
-(reference replay_buffer.py:19-29), optionally on a random subset of lanes.
-The write pointer and fill count are host integers.
+Transition mode: the buffer is a :class:`Transition` of ``(capacity, n_env,
+...)`` tensors; ``sample_window`` draws a time-contiguous window of
+``batch_size`` steps (reference replay_buffer.py:19-29), optionally on a
+random subset of lanes.  Episodic mode: a pool of ``(capacity, T, n_env,
+...)`` episode slots, one vectorized episode a slot (reference
+replay_buffer.py:33-58); ``sample_episodes`` draws whole single-lane
+episodes.  The write pointer and fill count are host integers.
 """
 from __future__ import annotations
 
@@ -113,3 +116,46 @@ def subsample_lanes(window: Transition, lanes: int | None, generator=None,
 def clear(state: ReplayState) -> ReplayState:
     """On-policy post-update clear (reference model.py:55-56)."""
     return state.replace(ptr=0, size=0)
+
+
+# --------------------------------------------------------------- episodic
+# One rollout of n_env lanes contributes n_env episodes to the pool.
+
+def init_episode_replay(capacity: int, example: Transition, t: int) -> ReplayState:
+    """Allocate (capacity, T, n_env, ...) episode slots from one example
+    transition of (n_env, ...) tensors."""
+    data = example.map(lambda x: torch.zeros((capacity, t) + tuple(x.shape),
+                                             dtype=x.dtype, device=x.device))
+    return ReplayState(data=data, ptr=0, size=0)
+
+
+def episode_slot(state: ReplayState) -> Transition:
+    """The (T, n_env, ...) views of the slot the next episode is written to;
+    the rollout writes its steps straight into them."""
+    return state.data.map(lambda buf: buf[state.ptr])
+
+
+def add_episode(state: ReplayState) -> ReplayState:
+    """Count the vectorized episode written into ``episode_slot(state)``:
+    advance the pointer and the fill."""
+    cap = state.capacity
+    return state.replace(ptr=(state.ptr + 1) % cap, size=min(state.size + 1, cap))
+
+
+def sample_episodes(state: ReplayState, batch_size: int, generator=None,
+                    draws=None) -> Transition:
+    """``batch_size`` whole episodes -> a (T, batch_size, ...) Transition.
+
+    Each draw picks a (slot, lane) pair uniformly over the filled slots and
+    all lanes (reference replay_buffer.py:46-52 samples its flat list the
+    same way): ``slots`` in [0, max(size, 1)), ``lanes`` in [0, n_env), or
+    ``draws = (slots, lanes)`` given explicitly."""
+    n_env = state.data.reward.shape[2]
+    device = state.data.reward.device
+    if draws is None:
+        kw = dict(generator=generator, device=device)
+        draws = (torch.randint(0, max(state.size, 1), (batch_size,), **kw),
+                 torch.randint(0, n_env, (batch_size,), **kw))
+    slots, lanes = (torch.as_tensor(d, device=device).long() for d in draws)
+    # advanced indices on axes 0 and 2 put the batch axis first
+    return state.data.map(lambda buf: buf[slots, :, lanes].transpose(0, 1))

@@ -1,5 +1,5 @@
 """PGTrainer: vectorized rollout + update runtime (PyTorch port of
-mapdn_tpu/learn/trainer.py, transition mode).
+mapdn_tpu/learn/trainer.py).
 
 Every ``behaviour_update_freq`` env steps of all ``n_envs`` lanes (one
 chunk), the trainer writes the chunk's transitions to the device-resident
@@ -20,13 +20,24 @@ Otherwise each step is written into the ring as it is produced.
 Off-policy algorithms keep the ring across chunks and episodes; on-policy
 ones clear it after each update.
 
+Episodic mode (``cfg.episodic``, reference model.py:72-96): one chunk is
+one whole episode of ``max_steps`` steps, written step by step into the
+next slot of an episode pool of ``ceil(replay_buffer_size / n_envs)``
+slots (``replay_buffer_size`` and ``batch_size`` count episodes); the
+update phase runs on batches of whole single-lane episodes every
+``behaviour_update_freq`` episodes and the soft target update every
+``target_update_freq`` episodes, both from :meth:`PGTrainer.run_episode`.
+
 Randomness comes from the carry's ``torch.Generator`` on the trainer's
 device.  ``_train_chunk`` also takes the draws explicitly (the parity tests
 replay the JAX package's key splits): ``draws = {"steps": [{"action_noise":
 (L, n, act), "env": {...}} per step], "value_lanes": (E_v, lanes),
 "value_starts": (E_v,), "value_loss": [the loss's draws per epoch], and the
-same three for "policy" and "mixer"}``, any part of which may be missing
-(a loss's draws are named by its model, e.g. MATD3's ``target_noise``);
+same three for "policy" and "mixer"}``; in episodic mode
+``"value_episodes": [(slots, lanes) per epoch]`` stands in for the lanes
+and starts, and ``_episodic_update`` takes the update's part.  Any part
+may be missing (a loss's draws are named by its model, e.g. MATD3's
+``target_noise``);
 ``_train_episode`` takes a list of such dicts, one a chunk; and
 ``_eval_rollout`` takes ``draws = {"reset": {"t0", "noise", "a0"},
 "steps": [{"step_noise": ...} per step]}``.
@@ -80,8 +91,6 @@ def _mean_stats(stat_list):
 
 class PGTrainer:
     def __init__(self, cfg, model, env, device=None):
-        if cfg.episodic:
-            raise NotImplementedError("episodic mode is not ported yet")
         self.device = resolve_device(device if device is not None else model.device)
         if env.device.type != self.device.type or model.device.type != self.device.type:
             raise ValueError("trainer, model and env must share one device")
@@ -92,11 +101,17 @@ class PGTrainer:
         self.avail = env.avail_actions
         self.steps = 0
         self.episodes = 0
-        self._chunk_len = min(cfg.behaviour_update_freq, cfg.max_steps)
-        self._chunks_per_episode = max(cfg.max_steps // self._chunk_len, 1)
-        self._ring_capacity = max(
-            cfg.batch_size, -(-int(cfg.replay_buffer_size) // cfg.n_envs))
-        self._stack_emit = self._chunk_len >= self._ring_capacity
+        if cfg.episodic:
+            self._chunk_len = cfg.max_steps
+            self._chunks_per_episode = 1
+            self._ring_capacity = None
+            self._stack_emit = False
+        else:
+            self._chunk_len = min(cfg.behaviour_update_freq, cfg.max_steps)
+            self._chunks_per_episode = max(cfg.max_steps // self._chunk_len, 1)
+            self._ring_capacity = max(
+                cfg.batch_size, -(-int(cfg.replay_buffer_size) // cfg.n_envs))
+            self._stack_emit = self._chunk_len >= self._ring_capacity
 
     # ------------------------------------------------------------------ init
     def init_carry(self, seed=0) -> TrainerCarry:
@@ -108,10 +123,18 @@ class PGTrainer:
         return self.carry_from(env_state, obs, algo, gen)
 
     def carry_from(self, env_state, obs, algo, generator, last_hid=None):
-        """A fresh carry (empty ring, step 0) around given state."""
+        """A fresh carry (empty ring or episode pool, step 0) around given
+        state."""
         if last_hid is None:
             last_hid = self.model.init_hidden(self.n_envs, obs.dtype)
-        replay = rb.init_replay(self._ring_capacity, self._example_transition(obs))
+        example = self._example_transition(obs)
+        if self.cfg.episodic:
+            # replay_buffer_size counts episodes, and a rollout stores n_envs
+            # of them (mapdn_tpu/learn/trainer.py:103-113)
+            slots = max(1, -(-int(self.cfg.replay_buffer_size) // self.n_envs))
+            replay = rb.init_episode_replay(slots, example, self.cfg.max_steps)
+        else:
+            replay = rb.init_replay(self._ring_capacity, example)
         return TrainerCarry(env_state=env_state, obs=obs, last_hid=last_hid,
                             algo=algo, replay=replay, generator=generator,
                             steps=0)
@@ -217,12 +240,16 @@ class PGTrainer:
         lanes = cfg.update_lanes
         subsampling = lanes is not None and lanes < self.n_envs
         fixed_window = None
-        if replay.capacity == cfg.batch_size and not subsampling:
+        if not cfg.episodic and replay.capacity == cfg.batch_size and not subsampling:
             fixed_window = rb.sample_window(replay, cfg.batch_size, generator=generator)
         epoch_draws = lambda key, e: None if draws.get(key) is None else draws[key][e]
         stats = []
         for e in range(epochs):
-            if fixed_window is not None:
+            if cfg.episodic:
+                # batch_size counts whole episodes (reference default.yaml:21)
+                batch = rb.sample_episodes(replay, cfg.batch_size, generator,
+                                           draws=epoch_draws(which + "_episodes", e))
+            elif fixed_window is not None:
                 batch = fixed_window
             else:
                 batch = rb.sample_window(
@@ -293,12 +320,50 @@ class PGTrainer:
         data.value.copy_(values)
         data.next_value.copy_(next_values)
 
+    @torch.no_grad()
+    def _fill_episode_values(self, carry: TrainerCarry, slot):
+        """value[t] = V(state[t]) over the stored episode in one critic
+        forward, next_value[t] = value[t+1] and V of the live obs after the
+        last step (mapdn_tpu/learn/trainer.py:436-445), in place."""
+        values = self._rollout_values_all(carry.algo, self._upcast(slot.state))
+        slot.value.copy_(values)
+        slot.next_value[:-1].copy_(values[1:])
+        slot.next_value[-1].copy_(self._rollout_value(carry.algo, carry.obs))
+
+    def _collect_episode(self, carry: TrainerCarry, step_draws):
+        """Episodic mode's chunk: a whole episode, each step written straight
+        into the pool's next slot (so no stacked copy of the episode
+        exists), then its rollout values; the update runs on the episode
+        cadence (``_episodic_update``)."""
+        slot = rb.episode_slot(carry.replay)
+        roll_stats = []
+        for t in range(self._chunk_len):
+            carry, trans, stats = self._rollout_step(carry, step_draws[t])
+            roll_stats.append(stats)
+            slot.map(lambda buf, x: buf[t].copy_(x), trans)
+        if self.model.stores_rollout_value:
+            self._fill_episode_values(carry, slot)
+        carry.replay = rb.add_episode(carry.replay)
+        return carry, _mean_stats(roll_stats)
+
+    def _episodic_update(self, carry: TrainerCarry, draws=None):
+        """The update phase on batches of whole episodes, then the
+        on-policy clear (mapdn_tpu/learn/trainer.py:375-382); returns
+        (carry, stats)."""
+        stats = self._update_phase(carry.algo, carry.replay, carry.generator, draws)
+        if self.model.on_policy:
+            carry.replay = rb.clear(carry.replay)
+        return carry, stats
+
     def _train_chunk(self, carry: TrainerCarry, draws=None):
         """``chunk_len`` rollout steps, the ring write, the value fill, the
-        update phase and the on-policy clear; returns (carry, stats)."""
+        update phase and the on-policy clear; in episodic mode the episode's
+        collection alone.  Returns (carry, stats)."""
         cfg = self.cfg
         draws = draws or {}
         step_draws = draws.get("steps") or [None] * self._chunk_len
+        if cfg.episodic:
+            return self._collect_episode(carry, step_draws)
         tail = collections.deque(maxlen=carry.replay.capacity)
         roll_stats = []
         for t in range(self._chunk_len):
@@ -341,8 +406,8 @@ class PGTrainer:
         for c in range(self._chunks_per_episode):
             prev = carry.steps
             carry, st = self._train_chunk(carry, draws[c])
-            if cfg.target and (carry.steps // cfg.target_update_freq
-                               > prev // cfg.target_update_freq):
+            if not cfg.episodic and cfg.target and (
+                    carry.steps // cfg.target_update_freq > prev // cfg.target_update_freq):
                 self._soft_update(carry.algo)
             stats.append(st)
         return carry, _mean_stats(stats)
@@ -385,10 +450,19 @@ class PGTrainer:
     # -------------------------------------------------------------- user API
     def run_episode(self) -> Dict[str, float]:
         """One training 'episode' = max_steps vectorized env steps with the
-        reference's update cadence; returns the mean stats."""
+        reference's update cadence; returns the mean stats.  In episodic
+        mode both cadences count episodes (mapdn_tpu/learn/trainer.py:
+        598-615), and an update's stats join the episode's."""
+        cfg = self.cfg
         self.carry, stats = self._train_episode(self.carry)
         self.steps += self._chunk_len * self._chunks_per_episode
         self.episodes += 1
+        if cfg.episodic:
+            if self.episodes % cfg.behaviour_update_freq == 0:
+                self.carry, upd = self._episodic_update(self.carry)
+                stats.update(upd)
+            if cfg.target and self.episodes % cfg.target_update_freq == 0:
+                self._soft_update(self.carry.algo)
         return {k: float(v) for k, v in stats.items()}
 
     def evaluate(self) -> Dict[str, float]:

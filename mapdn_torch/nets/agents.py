@@ -15,6 +15,13 @@ Two flax conventions are kept on purpose: LayerNorm eps is 1e-6, and the
 GRU cell has no r/z biases on the hidden path (torch.nn.GRUCell would add
 two trainable biases that change the optimizer's trajectory), gate order
 r, z, n.
+
+With ``per_agent=n`` (``shared_params: False``) every module is built from
+the per-agent layers :class:`AgentDense`, :class:`AgentLayerNorm` and
+:class:`AgentGRUCell`: each parameter has a leading agent axis in flax's
+stacked layout (the JAX package vmaps ``module.apply`` over a stack of
+parameter trees, mapdn_tpu/algos/base.py:185-214), and the module maps
+(b, n, .) to (b, n, .), agent i's features through agent i's parameters.
 """
 from __future__ import annotations
 
@@ -106,28 +113,142 @@ class GRUCell(nn.Module):
     def forward(self, x, h):
         gi = F.linear(x, self.weight_ih.to(x.dtype), self.bias_ih.to(x.dtype))
         gh = F.linear(h, self.weight_hh.to(x.dtype))
-        i_r, i_z, i_n = gi.chunk(3, dim=-1)
-        h_r, h_z, h_n = gh.chunk(3, dim=-1)
-        r = torch.sigmoid(i_r + h_r)
-        z = torch.sigmoid(i_z + h_z)
-        n = torch.tanh(i_n + r * (h_n + self.bias_hn.to(x.dtype)))
-        return (1.0 - z) * n + z * h
+        return _gru_update(gi, gh, h, self.bias_hn.to(x.dtype))
+
+
+def _gru_update(gi, gh, h, bias_hn):
+    """The GRU's gates from the input and hidden products (blocks r, z, n
+    on the last axis) and the new hidden state."""
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * (h_n + bias_hn))
+    return (1.0 - z) * n + z * h
+
+
+def _agent_linear(x, weight, bias=None):
+    """(b, n, in) through per-agent kernels (n, in, out) [+ biases (n, out)]
+    -> (b, n, out): one batched product over the agent axis."""
+    xt = x.transpose(0, 1)
+    w = weight.to(x.dtype)
+    out = (torch.bmm(xt, w) if bias is None
+           else torch.baddbmm(bias.to(x.dtype)[:, None], xt, w))
+    return out.transpose(0, 1)
+
+
+class AgentDense(nn.Module):
+    """n Dense layers, one per agent: (b, n, in) -> (b, n, out) with kernels
+    (n, in, out) (flax's layout) and biases (n, out)."""
+
+    def __init__(self, n, in_features, out_features, param_dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(n, in_features, out_features, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(n, out_features, dtype=param_dtype))
+
+    def reset_lecun_(self, generator=None):
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
+        self.bias.zero_()
+
+    def forward(self, x):
+        return _agent_linear(x, self.weight, self.bias)
+
+    def twin(self):
+        """A shared layer of one agent's shapes."""
+        return Dense(*self.weight.shape[1:], self.weight.dtype)
+
+    @torch.no_grad()
+    def load_agent_(self, i, dense: Dense):
+        self.weight[i].copy_(dense.weight.T)
+        self.bias[i].copy_(dense.bias)
+
+
+class AgentLayerNorm(nn.Module):
+    """n LayerNorms over the last axis of (b, n, f), scale and bias (n, f)."""
+
+    def __init__(self, n, features, param_dtype=torch.float32, eps=1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(n, features, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(n, features, dtype=param_dtype))
+
+    def forward(self, x):
+        y = F.layer_norm(x, self.weight.shape[1:], eps=self.eps)
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+    def twin(self):
+        """A shared layer of one agent's shapes."""
+        return LayerNorm(self.weight.shape[1], self.weight.dtype, self.eps)
+
+    @torch.no_grad()
+    def load_agent_(self, i, norm: LayerNorm):
+        self.weight[i].copy_(norm.weight)
+        self.bias[i].copy_(norm.bias)
+
+
+class AgentGRUCell(nn.Module):
+    """n :class:`GRUCell` s, one per agent, on (b, n, in) and (b, n, h):
+    kernels (n, in, 3h) and (n, h, 3h) (flax's stacked ``ir|iz|in`` and
+    ``hr|hz|hn`` kernels side by side), biases (n, 3h) and (n, h)."""
+
+    def __init__(self, n, in_features, hidden, param_dtype=torch.float32):
+        super().__init__()
+        self.weight_ih = nn.Parameter(torch.zeros(n, in_features, 3 * hidden, dtype=param_dtype))
+        self.weight_hh = nn.Parameter(torch.zeros(n, hidden, 3 * hidden, dtype=param_dtype))
+        self.bias_ih = nn.Parameter(torch.zeros(n, 3 * hidden, dtype=param_dtype))
+        self.bias_hn = nn.Parameter(torch.zeros(n, hidden, dtype=param_dtype))
+
+    def forward(self, x, h):
+        gi = _agent_linear(x, self.weight_ih, self.bias_ih)
+        gh = _agent_linear(h, self.weight_hh)
+        return _gru_update(gi, gh, h, self.bias_hn.to(x.dtype))
+
+    def twin(self):
+        """A shared cell of one agent's shapes."""
+        n, in_features, three_h = self.weight_ih.shape
+        return GRUCell(in_features, three_h // 3, self.weight_ih.dtype)
+
+    @torch.no_grad()
+    def load_agent_(self, i, cell: GRUCell):
+        self.weight_ih[i].copy_(cell.weight_ih.T)
+        self.weight_hh[i].copy_(cell.weight_hh.T)
+        self.bias_ih[i].copy_(cell.bias_ih)
+        self.bias_hn[i].copy_(cell.bias_hn)
+
+
+AGENT_LAYERS = (AgentDense, AgentLayerNorm, AgentGRUCell)
 
 
 class _Base(nn.Module):
-    """Shared stem: fc1 -> optional LayerNorm -> activation."""
+    """Shared stem: fc1 -> optional LayerNorm -> activation.  ``per_agent``
+    None: one set of parameters for every input row; an int n: per-agent
+    layers for n agents."""
 
     def __init__(self, in_dim, hid_size=64, layernorm=True,
                  hid_activation="relu", init_type="normal", init_std=0.1,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, per_agent=None):
         super().__init__()
         self.hid_size = hid_size
         self.hid_activation = hid_activation
         self.init_type = init_type
         self.init_std = init_std
         self.param_dtype = param_dtype
-        self.fc1 = Dense(in_dim, hid_size, param_dtype)
-        self.norm = LayerNorm(hid_size, param_dtype) if layernorm else None
+        self.per_agent = per_agent
+        self.fc1 = self._dense(in_dim, hid_size)
+        self.norm = None
+        if layernorm:
+            self.norm = (LayerNorm(hid_size, param_dtype) if per_agent is None
+                         else AgentLayerNorm(per_agent, hid_size, param_dtype))
+
+    def _dense(self, in_features, out_features):
+        if self.per_agent is None:
+            return Dense(in_features, out_features, self.param_dtype)
+        return AgentDense(self.per_agent, in_features, out_features, self.param_dtype)
+
+    def _gru(self, in_features, hidden):
+        if self.per_agent is None:
+            return GRUCell(in_features, hidden, self.param_dtype)
+        return AgentGRUCell(self.per_agent, in_features, hidden, self.param_dtype)
 
     def act(self, x):
         return _ACT[self.hid_activation](x)
@@ -140,15 +261,23 @@ class _Base(nn.Module):
 
     def reset_parameters(self, generator=None):
         """Kernels Normal(0, init_std) (or orthogonal), biases zero,
-        LayerNorm identity; GRU cells by their own rule."""
+        LayerNorm identity; GRU cells by their own rule.  Per-agent layers
+        are drawn agent by agent, each agent's slice of the whole module
+        as a shared module's (the JAX package draws each agent's tree
+        from a key of its own)."""
         with torch.no_grad():
-            for mod in self.modules():
-                if isinstance(mod, Dense):
-                    _init_kernel_(mod.weight, self.init_type, self.init_std,
-                                  self.hid_activation, generator)
-                    mod.bias.zero_()
-                elif isinstance(mod, GRUCell):
-                    mod.reset_parameters(generator)
+            for i in range(self.per_agent or 1):
+                for mod in self.modules():
+                    per_agent = isinstance(mod, AGENT_LAYERS)
+                    layer = mod.twin() if per_agent else mod
+                    if isinstance(layer, Dense):
+                        _init_kernel_(layer.weight, self.init_type, self.init_std,
+                                      self.hid_activation, generator)
+                        layer.bias.zero_()
+                    elif isinstance(layer, GRUCell):
+                        layer.reset_parameters(generator)
+                    if per_agent:
+                        mod.load_agent_(i, layer)
         return self
 
 
@@ -157,8 +286,8 @@ class MLPAgent(_Base):
 
     def __init__(self, in_dim, action_dim=1, **kw):
         super().__init__(in_dim, **kw)
-        self.fc2 = Dense(self.hid_size, self.hid_size, self.param_dtype)
-        self.head = Dense(self.hid_size, action_dim, self.param_dtype)
+        self.fc2 = self._dense(self.hid_size, self.hid_size)
+        self.head = self._dense(self.hid_size, action_dim)
 
     def forward(self, x, hidden=None):
         h = self.act(self.fc2(self.stem(x)))
@@ -170,8 +299,8 @@ class RNNAgent(_Base):
 
     def __init__(self, in_dim, action_dim=1, **kw):
         super().__init__(in_dim, **kw)
-        self.gru = GRUCell(self.hid_size, self.hid_size, self.param_dtype)
-        self.head = Dense(self.hid_size, action_dim, self.param_dtype)
+        self.gru = self._gru(self.hid_size, self.hid_size)
+        self.head = self._dense(self.hid_size, action_dim)
 
     def forward(self, x, hidden):
         hidden = self.gru(self.stem(x), hidden)
@@ -185,7 +314,7 @@ class _GaussianHead:
 
     def _gaussian_init(self, action_dim, log_std_min, log_std_max):
         self.log_std_min, self.log_std_max = log_std_min, log_std_max
-        self.log_std_head = Dense(self.hid_size, action_dim, self.param_dtype)
+        self.log_std_head = self._dense(self.hid_size, action_dim)
 
     def log_std(self, h):
         span = self.log_std_max - self.log_std_min

@@ -1,6 +1,6 @@
 """Critic networks (PyTorch port of mapdn_tpu/nets/critics.py): the MLP
-critic, the centralized V critic, the QMIX mixer and MAAC's attention
-critic.
+and GRU critics, the centralized V critic, the QMIX mixer and MAAC's
+attention critic.
 
 The last two take flax's ``nn.Dense`` defaults (lecun-normal kernels, zero
 biases), as the JAX modules do.  Per-agent layers (``nn.vmap`` in flax) are
@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mapdn_torch.nets.agents import Dense, _Base, _init_kernel_, lecun_normal_
+from mapdn_torch.nets.agents import AgentDense, Dense, _Base, _init_kernel_
 
 
 class MLPCritic(_Base):
@@ -24,11 +24,26 @@ class MLPCritic(_Base):
 
     def __init__(self, in_dim, output_dim=1, **kw):
         super().__init__(in_dim, **kw)
-        self.fc2 = Dense(self.hid_size, self.hid_size, self.param_dtype)
-        self.head = Dense(self.hid_size, output_dim, self.param_dtype)
+        self.fc2 = self._dense(self.hid_size, self.hid_size)
+        self.head = self._dense(self.hid_size, output_dim)
 
     def forward(self, x):
         return self.head(self.act(self.fc2(self.stem(x))))
+
+
+class RNNCritic(_Base):
+    """GRU critic (reference critics/rnn_critic.py:7-36): fc1 -> optional
+    LayerNorm -> act -> GRU cell -> out; (x, hidden) -> (value, hidden).
+    No algorithm uses it, in the reference, the JAX package or here."""
+
+    def __init__(self, in_dim, output_dim=1, **kw):
+        super().__init__(in_dim, **kw)
+        self.gru = self._gru(self.hid_size, self.hid_size)
+        self.head = self._dense(self.hid_size, output_dim)
+
+    def forward(self, x, hidden):
+        hidden = self.gru(self.stem(x), hidden)
+        return self.head(hidden), hidden
 
 
 class CentralVCritic(_Base):
@@ -123,25 +138,6 @@ class QMixer(nn.Module):
         if self.skip_connections:
             y = y + torch.sum(qs, dim=2, keepdim=True)
         return (y + v).reshape(b, 1)
-
-
-class AgentDense(nn.Module):
-    """n Dense layers, one per agent: (b, n, in) -> (b, n, out) with kernels
-    (n, in, out) (flax's layout) and biases (n, out)."""
-
-    def __init__(self, n, in_features, out_features, param_dtype=torch.float32):
-        super().__init__()
-        self.weight = nn.Parameter(torch.zeros(n, in_features, out_features, dtype=param_dtype))
-        self.bias = nn.Parameter(torch.zeros(n, out_features, dtype=param_dtype))
-
-    def reset_lecun_(self, generator=None):
-        lecun_normal_(self.weight, self.weight.shape[1], generator)
-        self.bias.zero_()
-
-    def forward(self, x):
-        out = torch.baddbmm(self.bias.to(x.dtype)[:, None], x.transpose(0, 1),
-                            self.weight.to(x.dtype))
-        return out.transpose(0, 1)
 
 
 def _leaky(x):

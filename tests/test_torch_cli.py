@@ -372,7 +372,8 @@ def test_port_imports_no_jax():
         "assert ({'mapdn_torch.algos.sqddpg', 'mapdn_torch.algos.maac',\n"
         "        'mapdn_torch.algos.facmaddpg', 'mapdn_torch.learn.tester',\n"
         "        'mapdn_torch.train', 'mapdn_torch.test',\n"
-        "        'mapdn_torch.scripts.train_zoo', 'mapdn_torch.scripts.learning_report'}\n"
+        "        'mapdn_torch.scripts.train_zoo', 'mapdn_torch.scripts.learning_report',\n"
+        "        'mapdn_torch.envs.wrapper', 'mapdn_torch.code_examples'}\n"
         "       <= set(names))\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
