@@ -79,6 +79,29 @@ Phases, each printing one line; any failure exits non-zero:
                   CPU, float64, as ``algos`` (a); then one 512-lane case33
                   training episode each of iddpg and mappo, and that every
                   agent's slice of the policy moved.
+15. solvers     - ``nr_solve(fixed_iter=1, 10)`` and ``nr_solve_dense`` at
+                  case33 and case69 on the card against the CPU (float64);
+                  case69 and case141 at 512 and 4096 env-like lanes through
+                  the large kernel's solver and the torch-op solver, flat
+                  and warm starts (the timings that set
+                  ``make_solver("auto")``); the path "auto" picks per case.
+16. multigpu    - (a) __graft_entry__.py's five profiles (maddpg as an
+                  episode, mappo, facmaddpg, coma episodic, maddpg
+                  decentralised) at 8 lanes as 2 gloo ranks sharing the
+                  card (worker processes of this script), each against one
+                  process on the card: the ranks' learners bitwise equal,
+                  their generators where the single process's is, the small
+                  kernel's launches per rank, the distance to one process;
+                  (b) one 512-lane mappo episode through ``python -m
+                  mapdn_torch.train --distributed`` at world size 1 over
+                  NCCL against the CLI without it; (c) one NCCL rank a card,
+                  run only where there are 2 cards or more.
+``phase_multigpu_scaling`` (not in ``main``; for a machine of several cards)
+runs the CLI's case33 MAPPO at 4096 lanes as one process on one card and as
+one NCCL rank on each card, and compares their speed and policies.
+17. profiling   - ``device_trace`` around one 512-lane case33 MAPPO chunk: the
+                  Chrome trace names the small kernel; ``PhaseTimer``'s
+                  summary.
 
 The line before the last two is the kernels' JSON record, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -350,7 +373,7 @@ def phase_kernel():
     # checks and launch included), `device_ms` and `host_ms` the call's
     # device and host time apart (cuda_device_ms)
     ctx = get_ctx_small(grid)
-    solve_kernel = make_solver(grid, backend="kernel")
+    solve_kernel = make_solver(grid, backend="auto")
     solver_ms = {"kernel": cuda_median_ms(lambda: solve_kernel(p, q)),
                  "plain": cuda_median_ms(lambda: nr_solve_small_ref(grid, p, q, ctx=ctx)),
                  "torch": cuda_median_ms(lambda: nr_solve(grid, p, q, ops=ops))}
@@ -419,6 +442,26 @@ def phase_kernel():
                 library_ms=None)
 
 
+def large_vs_plain(out, ref, all_tol, what):
+    """The large kernel's solve ``out`` held against its plain version's
+    ``ref`` on the same inputs: the converged flags equal, n_iter within 1,
+    vm and va within 2e-5 on the lanes that ran the same iterations and
+    within ``all_tol`` on every converged lane; raises otherwise."""
+    flags_equal = bool((out.converged == ref.converged).all())
+    d_it = int((out.n_iter - ref.n_iter).abs().max())
+    ok = out.converged
+    same = ok & (out.n_iter == ref.n_iter)
+    lane_err = torch.maximum((out.vm - ref.vm).abs().amax(1), (out.va - ref.va).abs().amax(1))
+    err_same = float(lane_err[same].max()) if bool(same.any()) else 0.0
+    err_all = float(lane_err[ok].max()) if bool(ok.any()) else 0.0
+    if not (flags_equal and d_it <= 1 and err_same <= 2e-5 and err_all <= all_tol):
+        raise AssertionError(f"{what}: large kernel against its plain version: converged "
+                             f"equal {flags_equal}, n_iter apart {d_it}, vm/va {err_same:.3e} "
+                             f"on equal iterations, {err_all:.3e} on all lanes")
+    return {"max_abs_err_same_iters": err_same, "max_abs_err_all": err_all,
+            "max_n_iter_diff": d_it, "lanes_one_iter_apart": int((ok & ~same).sum())}
+
+
 def phase_kernel_large():
     from mapdn_torch.grid import make_case
     from mapdn_torch.pf import fused_nr
@@ -469,15 +512,11 @@ def phase_kernel_large():
     torch.cuda.synchronize()
     for name, res in (("kernel", out), ("plain", ref), ("torch", tor)):
         assert res.vm.shape == (lanes, n) and res.n_iter.shape == (lanes,), name
-    assert bool((out.converged == ref.converged).all()), "converged differs"
-    d_it = int((out.n_iter - ref.n_iter).abs().max())
-    assert d_it <= 1, f"n_iter differs by {d_it}"
+    held = large_vs_plain(out, ref, 1e-3, "case322")
+    err_same, err_all, d_it = (held[k] for k in ("max_abs_err_same_iters",
+                                                 "max_abs_err_all", "max_n_iter_diff"))
     ok = out.converged
     same = ok & (out.n_iter == ref.n_iter)
-    lane_err = torch.maximum((out.vm - ref.vm).abs().amax(1), (out.va - ref.va).abs().amax(1))
-    err_same = float(lane_err[same].max())
-    err_all = float(lane_err[ok].max())
-    assert err_same <= 2e-5 and err_all <= 1e-3, (err_same, err_all)
     vs64 = {name: float((res.vm.double() - tru.vm).abs()[res.converged & tru.converged].max())
             for name, res in (("kernel", out), ("plain", ref), ("torch", tor))}
     assert vs64["kernel"] <= min(1e-3, vs64["torch"] + 2e-5), vs64
@@ -555,10 +594,10 @@ def phase_kernel_large():
     fdiv["kernel_vs_torch"] = float((~out.converged & tor.converged).double().mean())
 
     # case141 (npad 256), env-like lanes: the large kernel's solver beside
-    # the torch-op solver that "auto" gives it (recorded; the rule stays)
+    # the torch-op solver (the timings that set "auto" are in [solvers])
     g141, lp141, lq141, pv141 = make_case("case141", dtype=torch.float32, device="cuda")
     p141, q141 = env_injections(g141, pv141, lp141, lq141, lanes)
-    k141 = make_solver(g141, backend="kernel")
+    k141 = make_solver(g141, backend="auto")
     ops141 = packed_operators(g141)
     r141, t141 = k141(p141, q141), nr_solve(g141, p141, q141, ops=ops141)
     assert bool((r141.converged == t141.converged).all())
@@ -621,6 +660,116 @@ def large_kernel_counts(ctx, n_iter, inner):
     w_bytes = 4 * lr * lr * w_products
     return {"mean_block_iters": float(iters.mean()), "gflop_run": flops / 1e9,
             "l2_operator_gbytes_computed": (w_bytes + len(iters) * y_bytes) / 1e9}
+
+
+SOLVER_CASES = ("case69", "case141")
+SOLVER_LANES = (512, 4096)   # the zoo's and the CLI sweep's width; the case322 width
+SOLVER_F64_TOL = 1e-9        # [solvers] (a): the card's float64 solves against the CPU's
+SOLVER_ALL_TOL = 1e-4        # [solvers] (b): the large kernel against its plain version on
+                             # every lane (2e-5 on lanes that ran the same iterations)
+
+
+def solver_surfaces_vs_cpu():
+    """``nr_solve(fixed_iter=1 and 10)`` and ``nr_solve_dense`` at case33
+    and case69 on the card against the CPU, float64, 64 env-like lanes:
+    the largest vm/va difference, and verdicts and counts equal."""
+    from mapdn_torch.grid import make_case
+    from mapdn_torch.pf import nr_solve, nr_solve_dense
+
+    out = {}
+    for case in ("case33", "case69"):
+        gc_, lp, lq, pv = make_case(case, dtype=torch.float64, device="cuda")
+        gh, *_ = make_case(case, dtype=torch.float64, device="cpu")
+        p, q = (x.double() for x in env_injections(gc_, pv, lp, lq, 64))
+        runs = {"fixed_iter_1": lambda g, a, b: nr_solve(g, a, b, tol=1e-9, fixed_iter=1),
+                "fixed_iter_10": lambda g, a, b: nr_solve(g, a, b, tol=1e-9, fixed_iter=10),
+                "dense": lambda g, a, b: nr_solve_dense(g, a, b)}
+        for name, run in runs.items():
+            card, host = run(gc_, p, q), run(gh, p.cpu(), q.cpu())
+            err = max(float((card.vm.cpu() - host.vm).abs().max()),
+                      float((card.va.cpu() - host.va).abs().max()))
+            if not (torch.equal(card.converged.cpu(), host.converged)
+                    and torch.equal(card.n_iter.cpu(), host.n_iter) and err <= SOLVER_F64_TOL):
+                raise AssertionError(f"[solvers] {case} {name}: card against CPU {err:.3e}")
+            out[f"{case}/{name}"] = {"max_abs_err": err,
+                                     "n_converged": int(card.converged.sum()),
+                                     "max_n_iter": int(card.n_iter.max())}
+    return out
+
+
+def solver_timings():
+    """Each grid of ``SOLVER_CASES`` at each of ``SOLVER_LANES`` env-like
+    float32 lanes through ``make_solver(backend="auto")`` (the large
+    kernel) and ``backend="torch"``: the median of 20 calls between CUDA
+    events, each call the whole solve as the env pays it (pack, solve,
+    unpack, the bus and branch results); a flat start (a reset) and a warm
+    start from the flat solution of injections 5 % away (a step).  Both
+    kernel solves are held against the plain version on the same inputs
+    (``large_vs_plain``, ``SOLVER_ALL_TOL`` on every lane)."""
+    from mapdn_torch.grid import make_case
+    from mapdn_torch.pf import make_solver
+    from mapdn_torch.pf.fused_nr import get_ctx, nr_solve_large, nr_solve_large_ref, solver_path
+
+    table = {}
+    for case in SOLVER_CASES:
+        grid, lp, lq, pv = make_case(case, dtype=torch.float32, device="cuda")
+        row = {"n_bus": grid.n_bus, "auto": solver_path(grid.n_bus, "auto")}
+        for lanes in SOLVER_LANES:
+            p, q = env_injections(grid, pv, lp, lq, lanes)
+            gen = torch.Generator(device="cuda").manual_seed(lanes)
+            drift = 1.0 + 0.05 * (2 * torch.rand(p.shape, generator=gen, device="cuda") - 1)
+            p2, q2 = p * drift, q * drift
+            for backend in ("auto", "torch"):
+                solve = make_solver(grid, backend=backend)
+                nr_solve_large.launches = 0
+                flat = solve(p, q)
+                warm = solve(p2, q2, flat.vm, flat.va)
+                if nr_solve_large.launches != (2 if backend == "auto" else 0):
+                    raise AssertionError(f"[solvers] {case} {backend}: "
+                                         f"{nr_solve_large.launches} large-kernel launches")
+                if not (bool(flat.converged.all()) and bool(warm.converged.all())):
+                    raise AssertionError(f"[solvers] {case} {backend} {lanes}: "
+                                         "a lane did not converge")
+                row[f"{backend}_{lanes}"] = {
+                    "flat_ms": cuda_median_ms(lambda: solve(p, q)),
+                    "warm_ms": cuda_median_ms(lambda: solve(p2, q2, flat.vm, flat.va)),
+                    "flat_mean_n_iter": float(flat.n_iter.double().mean()),
+                    "warm_mean_n_iter": float(warm.n_iter.double().mean())}
+                if backend == "auto":
+                    ctx = get_ctx(grid)
+                    what = f"[solvers] {case} {lanes}"
+                    row[f"{backend}_{lanes}"]["vs_plain"] = {
+                        "flat": large_vs_plain(flat, nr_solve_large_ref(grid, p, q, ctx=ctx),
+                                               SOLVER_ALL_TOL, what + " flat"),
+                        "warm": large_vs_plain(warm, nr_solve_large_ref(
+                            grid, p2, q2, vm0=flat.vm, va0=flat.va, ctx=ctx),
+                            SOLVER_ALL_TOL, what + " warm")}
+            k, t = row[f"auto_{lanes}"], row[f"torch_{lanes}"]
+            row[f"faster_{lanes}"] = ("large" if k["warm_ms"] < t["warm_ms"]
+                                      and k["flat_ms"] < t["flat_ms"] else
+                                      "torch" if k["warm_ms"] > t["warm_ms"]
+                                      and k["flat_ms"] > t["flat_ms"] else "split")
+        table[case] = row
+    return table
+
+
+def phase_solvers(smi):
+    """The solver surfaces on the card against the CPU, the timings that
+    set ``make_solver("auto")``, and the path "auto" picks for each case."""
+    from mapdn_torch.grid import make_case
+    from mapdn_torch.pf.fused_nr import solver_path
+
+    surfaces = solver_surfaces_vs_cpu()
+    timings = solver_timings()
+    auto = {case: solver_path(make_case(case, device="cpu")[0].n_bus, "auto")
+            for case in ("case33", "case69", "case141", "case322")}
+    for case, row in timings.items():
+        for lanes in SOLVER_LANES:
+            if row[f"faster_{lanes}"] not in ("split", row["auto"]):
+                raise AssertionError(f"[solvers] {case} at {lanes} lanes: 'auto' takes "
+                                     f"{row['auto']}, {row[f'faster_{lanes}']} is faster")
+    say("solvers", f64_vs_cpu=surfaces, f64_tol=SOLVER_F64_TOL, timings=timings,
+        auto=auto, card=smi)
 
 
 def phase_golden():
@@ -1349,6 +1498,326 @@ def phase_nonshared(smi):
         train=train, card=smi)
 
 
+# [multigpu] (a): __graft_entry__.py:76-82's five profiles at 8 lanes; the
+# sharded runs against one process on the card in float32.  Ranks in step
+# with the single process leave its generator exactly where it leaves it and
+# launch the small kernel as often; the all-reduce and the smaller per-rank
+# products round differently, which RMSprop's first steps (g / sqrt(v))
+# carry into the parameters.  So the parameters' change over the run (final
+# less initial) is held to the single process's, as the relative L2 of the
+# difference of the two changes, to MULTIGPU_PARAM_TOL; the stats to
+# MULTIGPU_STAT_RTOL (ranks out of step draw other lanes and move every
+# number).  A planted fault, mappo sharded with batchnorm's statistics
+# taken over each rank's own rows (an update that is wrong, yet the same on
+# both ranks), must read above MULTIGPU_PARAM_TOL, or the check is blind
+MULTIGPU_PROFILES = (("maddpg", {}, "episode"), ("mappo", {}, "chunks"),
+                     ("facmaddpg", {}, "chunks"), ("coma", {"episodic": True}, "chunks"),
+                     ("maddpg", {"mode": "decentralised"}, "chunks"))
+MULTIGPU_LANES = 8
+MULTIGPU_WORLD = 2
+MULTIGPU_PARAM_TOL = 2e-2
+MULTIGPU_STAT_RTOL = 1e-2
+
+
+def multigpu_trainer(alg, sharded, mode="distributed", episodic=False):
+    """__graft_entry__.py's ``_build`` on the card (case33, episodes of 16
+    steps, chunks of 4, replay 32), set up on seed 0: a
+    ``ShardedPGTrainer`` over the process group, or one process's
+    ``PGTrainer``."""
+    from mapdn_torch.algos import make_model
+    from mapdn_torch.envs import EnvConfig, make_env
+    from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.parallel import ShardedPGTrainer
+    from mapdn_torch.utils.config import load_config
+
+    env = make_env("case33", EnvConfig(episode_limit=16, mode=mode), days=4,
+                   dtype=torch.float32, device="cuda")
+    info = env.get_env_info()
+    cfg, _ = load_config(alg)
+    cfg = cfg.replace(agent_num=info["n_agents"], obs_size=info["obs_shape"],
+                      action_dim=info["n_actions"], max_steps=8, behaviour_update_freq=4,
+                      batch_size=4, value_update_epochs=2, policy_update_epochs=1,
+                      replay_buffer_size=32, n_envs=MULTIGPU_LANES, num_eval_episodes=2,
+                      episodic=episodic)
+    cls = ShardedPGTrainer if sharded else PGTrainer
+    return cls(cfg, make_model(alg, cfg, device="cuda"), env).setup(seed=0)
+
+
+def learner_params(algo):
+    """The learner's parameters (policy, critic, mixer), flattened."""
+    modules = [algo.policy, algo.value] + ([algo.mixer] if algo.mixer is not None else [])
+    return torch.cat([p.detach().reshape(-1) for m in modules for p in m.parameters()]).cpu()
+
+
+def multigpu_profile(alg, opts, program, sharded):
+    """One profile (two chunks or an episode of two, coma's episodic update,
+    an eval): the learner's parameters flattened before and after, the
+    stats, and the small kernel's launches in training and in the eval."""
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+
+    trainer = multigpu_trainer(alg, sharded, **opts)
+    nr_solve_small.launches = 0
+    carry = trainer.carry
+    init = learner_params(carry.algo)
+    if program == "episode":
+        carry, stats = trainer._train_episode(carry)
+    else:
+        carry, _ = trainer._train_chunk(carry)
+        carry, stats = trainer._train_chunk(carry)
+    if trainer.cfg.episodic:
+        carry, upd = trainer._episodic_update(carry)
+        stats = {**stats, **upd}
+    trainer.carry = carry
+    torch.cuda.synchronize()
+    train_launches = nr_solve_small.launches
+    stats.update(trainer.evaluate())
+    return dict(init=init, params=learner_params(carry.algo),
+                stats={k: float(v) for k, v in stats.items()},
+                generator=carry.generator.get_state(), train_launches=train_launches,
+                eval_launches=nr_solve_small.launches - train_launches)
+
+
+def multigpu_worker(rank, port, out):
+    """One gloo rank on the card: every profile, saved to ``out``."""
+    from mapdn_torch.parallel import init_process_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mapdn_torch.utils import lanes
+
+    init_process_group(f"localhost:{port}", MULTIGPU_WORLD, rank, "gloo")
+    try:
+        runs = [multigpu_profile(alg, opts, program, True)
+                for alg, opts, program in MULTIGPU_PROFILES]
+        # the planted fault: batchnorm sees no shard, so it standardizes over
+        # this rank's rows alone
+        current, lanes.current = lanes.current, lambda: None
+        try:
+            runs.append(multigpu_profile("mappo", {}, "chunks", True))
+        finally:
+            lanes.current = current
+        torch.save(runs, out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(argv_of, world, timeout=600):
+    """Start ``world`` processes (``argv_of(rank)``) and wait for all; as
+    soon as one fails, stop the others (a rank left alone waits in a
+    collective until its timeout) and raise with its output; returns the
+    outputs."""
+    logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
+    procs = [subprocess.Popen(argv_of(r), stdout=logs[r], stderr=subprocess.STDOUT,
+                              text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while (any(p.poll() is None for p in procs) and time.monotonic() < deadline
+               and not any(p.returncode for p in procs)):
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} exited {p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def cli_rank(argv):
+    """``mapdn_torch.train.main(argv)`` in this process (one rank of
+    ``nccl_ranks``): one ``RESULT`` line with its episode seconds, final
+    policy L1 and world size."""
+    from mapdn_torch import train
+
+    out = train.main(argv)
+    print("RESULT " + json.dumps({k: out[k] for k in (
+        "episode_s", "final_policy_param_l1", "world_size")}), flush=True)
+
+
+def nccl_ranks(flags, world, work, tag):
+    """``world`` ranks of the training CLI over NCCL, one card each, as
+    worker processes of this script: each rank's ``RESULT``."""
+    port = free_port()
+    outs = run_ranks(lambda r: [sys.executable, os.path.abspath(__file__), "--cli-rank",
+                                *flags, "--distributed", "--coordinator", f"localhost:{port}",
+                                "--num-processes", str(world), "--process-id", str(r),
+                                "--save-path", os.path.join(work, f"{tag}_r{r}")], world)
+    return [json.loads(line.split(" ", 1)[1]) for out in outs
+            for line in out.splitlines() if line.startswith("RESULT ")]
+
+
+def final_l1(out):
+    lines = [l for l in out.splitlines() if l.startswith("final_policy_param_l1")]
+    assert len(lines) == 1, out[-2000:]
+    return float(lines[0].split()[-1])
+
+
+def change_rel_err(run, ref):
+    """The relative L2 distance of ``run``'s parameter change (final less
+    initial) from ``ref``'s."""
+    change = ref["params"] - ref["init"]
+    return float(((run["params"] - run["init"]) - change).norm() / change.norm())
+
+
+def phase_multigpu(smi, work):
+    """(a) the five profiles as 2 gloo ranks sharing the card, against one
+    process on the card; (b) one 512-lane mappo episode through
+    ``python -m mapdn_torch.train --distributed`` at world size 1 over NCCL,
+    against the CLI without it; (c) 2 NCCL ranks where there are 2 cards."""
+    from mapdn_torch import train
+
+    t0 = time.perf_counter()
+    outs = [os.path.join(work, f"multigpu_rank{r}.pt") for r in range(MULTIGPU_WORLD)]
+    port = free_port()
+    procs_argv = lambda r: [sys.executable, os.path.abspath(__file__), "--multigpu-worker",
+                            str(r), str(port), outs[r]]
+    single = [multigpu_profile(alg, opts, program, False)
+              for alg, opts, program in MULTIGPU_PROFILES]
+    run_ranks(procs_argv, MULTIGPU_WORLD)
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    profiles = {}
+    for i, (alg, opts, program) in enumerate(MULTIGPU_PROFILES):
+        name = "+".join([alg] + [f"{k}={v}" for k, v in opts.items()]
+                        + ([program] if program == "episode" else []))
+        ref, r0, r1 = single[i], ranks[0][i], ranks[1][i]
+        if not torch.equal(r0["params"], r1["params"]):
+            raise AssertionError(f"[multigpu] {name}: the ranks' parameters differ")
+        param_err = float((r0["params"] - ref["params"]).abs().max())
+        param_rel = change_rel_err(r0, ref)
+        stat_err = max(abs(r0["stats"][k] - v) / max(abs(v), 1e-6)
+                       for k, v in ref["stats"].items())
+        if r0["stats"] != r1["stats"] or set(r0["stats"]) != set(ref["stats"]):
+            raise AssertionError(f"[multigpu] {name}: the ranks' stats differ")
+        launches = [r["train_launches"] for r in (r0, r1)]
+        in_step = all(torch.equal(r["generator"], ref["generator"]) for r in (r0, r1))
+        if not in_step or param_rel > MULTIGPU_PARAM_TOL or stat_err > MULTIGPU_STAT_RTOL or any(
+                n != ref["train_launches"] for n in launches):
+            raise AssertionError(f"[multigpu] {name}: generators in step {in_step}, params "
+                                 f"{param_rel:.3e}, stats {stat_err:.3e}, launches "
+                                 f"{launches} against {ref['train_launches']}")
+        change = ref["params"] - ref["init"]
+        profiles[name] = dict(param_max_abs_err=param_err, param_change_rel_l2=param_rel,
+                              param_change_l2=float(change.norm()),
+                              param_change_share=float(change.norm() / ref["params"].norm()),
+                              stat_max_rel_err=stat_err,
+                              nr_small_launches_per_rank=launches,
+                              nr_small_launches_single=ref["train_launches"],
+                              eval_launches_per_rank=[r0["eval_launches"], r1["eval_launches"]],
+                              reward=ref["stats"]["mean_train_reward"])
+    planted = change_rel_err(ranks[0][len(MULTIGPU_PROFILES)],
+                             single[[a for a, *_ in MULTIGPU_PROFILES].index("mappo")])
+    if planted <= MULTIGPU_PARAM_TOL:
+        raise AssertionError(f"[multigpu] a planted fault (batchnorm over each rank's "
+                             f"rows) reads {planted:.3e}, within {MULTIGPU_PARAM_TOL}")
+    gloo_s = time.perf_counter() - t0
+
+    # (b) the NCCL code on the card: world size 1
+    t0 = time.perf_counter()
+    flags = ["--alg", "mappo", "--n-envs", str(N_LANES_ALGOS), "--episodes", "1"]
+    port = free_port()
+    nccl_out = run_ranks(lambda r: [sys.executable, "-m", "mapdn_torch.train", *flags,
+                                    "--distributed", "--coordinator", f"localhost:{port}",
+                                    "--num-processes", "1", "--process-id", "0",
+                                    "--save-path", os.path.join(work, "nccl1")], 1)[0]
+    plain = train.main(flags + ["--save-path", os.path.join(work, "nccl1_plain")])
+    nccl_l1, plain_l1 = final_l1(nccl_out), plain["final_policy_param_l1"]
+    if "ranks=1" not in nccl_out or abs(nccl_l1 - plain_l1) > 1e-5 * abs(plain_l1):
+        raise AssertionError(f"[multigpu] NCCL world 1: {nccl_l1} against {plain_l1}")
+    nccl = dict(world_size=1, final_policy_param_l1=nccl_l1, plain_l1=plain_l1,
+                seconds=time.perf_counter() - t0)
+
+    # (c) NCCL ranks on several cards, one a card
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        l1s = [r["final_policy_param_l1"] for r in nccl_ranks(flags, cards, work, "ncclN")]
+        if len(set(l1s)) != 1:
+            raise AssertionError(f"[multigpu] NCCL {cards} ranks: {l1s}")
+        nccl2 = dict(world_size=cards, final_policy_param_l1=l1s)
+    else:
+        nccl2 = f"not run: {cards} card (NCCL takes one card a rank)"
+    say("multigpu", world_size=MULTIGPU_WORLD, backend="gloo", n_envs=MULTIGPU_LANES,
+        param_tol=MULTIGPU_PARAM_TOL, stat_rtol=MULTIGPU_STAT_RTOL, profiles=profiles,
+        planted_fault_param_change_rel_l2=planted,
+        gloo_s=gloo_s, nccl_world1=nccl, nccl_world2=nccl2, card=smi)
+
+
+SCALING_LANES = 4096   # [multigpu_scaling]: the case33 lanes, split over the cards
+
+
+def phase_multigpu_scaling(smi, work, episodes=3):
+    """Run alone on a machine of several cards (``main`` needs one): the
+    CLI's case33 MAPPO at ``SCALING_LANES`` lanes for ``episodes`` episodes,
+    first as one process on one card, then as one NCCL rank on each card
+    (the lanes split); the episode seconds, env-steps/s over the episodes
+    after the first (the slowest rank's), and the ranks' final policy L1,
+    equal to each other, beside one process's."""
+    from mapdn_torch import train
+
+    flags = ["--alg", "mappo", "--n-envs", str(SCALING_LANES), "--episodes", str(episodes)]
+    single = train.main(flags + ["--save-path", os.path.join(work, "scale1")])
+    cards = torch.cuda.device_count()
+    ranks = nccl_ranks(flags, cards, work, "scaleN")
+    l1s = [r["final_policy_param_l1"] for r in ranks]
+    if len(ranks) != cards or len(set(l1s)) != 1:
+        raise AssertionError(f"[multigpu_scaling] the ranks' policies differ: {l1s}")
+    t1 = float(np.median(single["episode_s"][1:]))
+    tn = float(np.median([max(r["episode_s"][e] for r in ranks)
+                          for e in range(1, episodes)]))
+    say("multigpu_scaling", cards=cards, n_envs=SCALING_LANES, episodes=episodes,
+        single_episode_s=single["episode_s"], rank_episode_s=[r["episode_s"] for r in ranks],
+        single_env_steps_per_s=240 * SCALING_LANES / t1,
+        sharded_env_steps_per_s=240 * SCALING_LANES / tn, speedup=t1 / tn,
+        single_l1=single["final_policy_param_l1"], ranks_l1=l1s[0],
+        l1_rel_diff=abs(l1s[0] - single["final_policy_param_l1"])
+        / abs(single["final_policy_param_l1"]), card=smi)
+
+
+def phase_profiling(smi, work):
+    """``device_trace`` around one 512-lane case33 MAPPO chunk after a
+    warm-up chunk: the Chrome trace names the small kernel; ``PhaseTimer``
+    times set-up and both chunks."""
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+    from mapdn_torch.utils.profiling import PhaseTimer, device_trace
+
+    timer = PhaseTimer()
+    with timer.phase("setup"):
+        trainer = library_trainer("mappo")
+    with timer.phase("chunk", block_on=trainer.carry.obs):
+        carry, stats = trainer._train_chunk(trainer.carry)
+    nr_solve_small.launches = 0
+    with device_trace(os.path.join(work, "trace")) as prof:
+        with timer.phase("chunk_traced", block_on=stats):
+            carry, stats = trainer._train_chunk(carry)
+    launches = nr_solve_small.launches
+    with open(prof.trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernel = [e for e in events if e.get("cat") == "kernel"
+              and "nr_small_kernel" in e.get("name", "")]
+    if not kernel or not launches:
+        raise AssertionError(f"[profiling] the trace names {len(kernel)} nr_small "
+                             f"kernels, the wrapper counted {launches} launches")
+    busy_ms = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
+    say("profiling", trace_mb=os.path.getsize(prof.trace_path) / 1e6,
+        nr_small_kernel_events=len(kernel), nr_small_launches=launches,
+        nr_small_device_ms=sum(e.get("dur", 0) for e in kernel) / 1e3,
+        kernel_events=sum(e.get("cat") == "kernel" for e in events),
+        kernel_busy_ms=busy_ms, phases=timer.summary(), card=smi)
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1366,6 +1835,9 @@ def main():
         phase_examples(smi)
         phase_episodic(smi)
         phase_nonshared(smi)
+        phase_solvers(smi)
+        phase_multigpu(smi, work)
+        phase_profiling(smi, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": [small, large]}))
@@ -1376,4 +1848,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multigpu-worker"]:
+        multigpu_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--cli-rank"]:
+        cli_rank(sys.argv[2:])
+    else:
+        main()

@@ -10,15 +10,18 @@ The module tree mirrors mapdn_tpu's so each file has an obvious counterpart:
     scripts     mapdn_torch.scripts        (the zoo and its learning report, as
                                             scripts/train_zoo.py, learning_report.py)
     config      mapdn_torch.utils.config   (3-layer YAML merge -> dataclass)
-    utils       mapdn_torch.utils          (metrics logging, checkpoints, kernel build)
+    utils       mapdn_torch.utils          (metrics logging, checkpoints, kernel build,
+                                            profiling hooks, lane sharding)
     runtime     mapdn_torch.learn          (trainer with eval, transition and episodic
                                             modes; tester, replay, losses, sampling)
+    multi-GPU   mapdn_torch.parallel       (the trainer over a torch.distributed group)
     algorithms  mapdn_torch.algos          (the 10 and random; registry)
     networks    mapdn_torch.nets           (GRU/MLP agents, critics, mixer; shared or
                                             per-agent parameters)
     environment mapdn_torch.envs           (natively batched voltage control; the
                                             PyMARL wrapper VoltageControlWrapper)
     physics     mapdn_torch.pf + .grid     (batched NR power flow, Y-bus)
+    native      mapdn_torch.native         (the C++ float64 NR oracle, built by g++)
     kernels     mapdn_torch/csrc           (hand-written CUDA, built at first use)
 
 Nothing here imports JAX or mapdn_tpu.  Entry points run on the GPU unless

@@ -61,7 +61,7 @@ class COMA(MARLModel):
             with torch.no_grad():
                 shape = (cfg.sample_size,) + tuple(means.shape)
                 noise = draw_normal((draws or {}).get("sample_noise"), shape,
-                                    means, generator)
+                                    means, generator, axis=1)
                 advantages = (self.value(state.value, b.state, b.action)
                               - self.baselines(state.value, b.state, b.action,
                                                means, log_stds, noise))

@@ -17,6 +17,7 @@ import torch
 
 from mapdn_torch.algos.base import MARLModel, mix_detached
 from mapdn_torch.learn.sampling import batchnorm
+from mapdn_torch.utils import lanes
 
 
 class SQDDPG(MARLModel):
@@ -27,7 +28,8 @@ class SQDDPG(MARLModel):
         """One random ordering of the n agents per (transition, sample), on
         ``like``'s device: (b, s, n)."""
         shape = (batch_size, self.cfg.sample_size, self.n)
-        return torch.rand(shape, generator=generator, device=like.device).argsort(-1)
+        return lanes.draw(lambda s: torch.rand(s, generator=generator, device=like.device),
+                          shape).argsort(-1)
 
     def marginal_contribution(self, module, obs, act, positions):
         """(b, n, o), (b, n, a), (b, s, n) -> (b, s, n) marginal
@@ -47,6 +49,8 @@ class SQDDPG(MARLModel):
     def value(self, module, obs, act, positions=None, generator=None):
         if positions is None:
             positions = self.draw_positions(obs.shape[0], obs, generator)
+        else:
+            positions = lanes.given(positions)
         return self.marginal_contribution(module, obs, act, positions)
 
     def _shapley(self, module, obs, act, draws, name, generator):

@@ -21,6 +21,10 @@ in explicitly (the parity tests do, with numbers replayed from JAX):
 * ``noise``: a tuple of standard normals (pv (L, n_sgen), load_p (L, n_load),
   load_q (L, n_load)); the env adds ``std * |noise|``;
 * ``t0``: (L,) episode-window starts; ``a0``: (L, n_sgen) reset actions.
+
+Under a :class:`mapdn_torch.utils.lanes.LaneShard` (a sharded trainer's
+rollout) L is the whole lane count, drawn or given, and the env keeps its
+rank's lanes.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 from mapdn_torch.envs.barriers import get_barrier
 from mapdn_torch.envs.timeseries import TimeSeries
 from mapdn_torch.pf.fused_nr import make_solver
+from mapdn_torch.utils import lanes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,13 +63,15 @@ class EnvConfig:
     pf_tol: float = 1e-7
     pf_max_iter: int = 20
     reset_retries: int = 4
-    # power-flow solver (pf.fused_nr.make_solver): 'auto' runs the small
-    # CUDA kernel for grids of <= 64 buses, the large one above 200 buses
-    # and the torch-op solver in between; 'kernel' takes a kernel for every
-    # grid, 'torch' never
+    # power-flow solver (pf.fused_nr.make_solver): 'auto' (as 'kernel') runs
+    # the small CUDA kernel for grids of <= 64 buses and the large one
+    # above; 'torch' the torch-op solver
     pf_backend: str = "auto"
     # Richardson refinement steps per Newton direction
     pf_inner_iters: int = 3
+    # the torch-op solver's fixed iteration count (None: early exit); the
+    # kernels ignore it (pf.fused_nr.make_solver)
+    pf_fixed_iter: Any = None
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -139,7 +146,8 @@ class VoltageControlEnv:
         self.device = grid.g_mat.device
         self._solver = make_solver(
             grid, backend=cfg.pf_backend, tol=cfg.pf_tol,
-            max_iter=cfg.pf_max_iter, inner_iters=cfg.pf_inner_iters)
+            max_iter=cfg.pf_max_iter, inner_iters=cfg.pf_inner_iters,
+            fixed_iter=cfg.pf_fixed_iter)
 
         dev, dt = self.device, self.dtype
         line_mask = grid.is_line.detach().cpu().double().numpy()
@@ -211,6 +219,8 @@ class VoltageControlEnv:
         if add_noise:
             if noise is None:
                 noise = tuple(self._randn(x.shape, generator) for x in (pv, lp, lq))
+            else:
+                noise = tuple(lanes.given(z) for z in noise)
             z_pv, z_lp, z_lq = (torch.as_tensor(z, device=self.device).to(self.dtype)
                                 for z in noise)
             pv = pv + self.ts.pv_std * torch.abs(z_pv)
@@ -219,8 +229,8 @@ class VoltageControlEnv:
         return pv, lp, lq
 
     def _randn(self, shape, generator):
-        return torch.randn(shape, generator=generator, dtype=self.dtype,
-                           device=self.device)
+        return lanes.draw(lambda s: torch.randn(s, generator=generator, dtype=self.dtype,
+                                                device=self.device), shape)
 
     # ------------------------------------------------------------- power flow
     def _solve(self, load_p, load_q, pv_p, sgen_q, vm0=None, va0=None):
@@ -243,10 +253,12 @@ class VoltageControlEnv:
     # ------------------------------------------------------------------ reset
     def _sample_start(self, n_lanes, generator=None):
         """day/hour/interval decomposition (voltage_control_env.py:381-398)."""
-        kw = dict(generator=generator, device=self.device)
-        day = torch.randint(0, self.max_start_day, (n_lanes,), **kw)
-        hour = torch.randint(0, 24, (n_lanes,), **kw)
-        interval = torch.randint(0, self.steps_per_hour, (n_lanes,), **kw)
+        def randint(high):
+            return lanes.draw(lambda s: torch.randint(
+                0, high, s, generator=generator, device=self.device), (n_lanes,))
+        day = randint(self.max_start_day)
+        hour = randint(24)
+        interval = randint(self.steps_per_hour)
         return interval + hour * self.steps_per_hour + day * self.steps_per_day
 
     def _attempt_reset(self, t0, add_noise, generator=None, vm0=None,
@@ -257,9 +269,12 @@ class VoltageControlEnv:
         n_lanes, n_sgen = pv.shape
         if self.cfg.reset_action:
             if a0 is None:
-                a0 = torch.rand((n_lanes, n_sgen), generator=generator,
-                                dtype=self.dtype, device=self.device)
+                a0 = lanes.draw(lambda s: torch.rand(
+                    s, generator=generator, dtype=self.dtype, device=self.device),
+                    (n_lanes, n_sgen))
                 a0 = a0 * (self.action_high - self.action_low) + self.action_low
+            else:
+                a0 = lanes.given(a0)
             q0 = self.clip_reactive_power(
                 torch.as_tensor(a0, device=self.device).to(self.dtype), pv)
         else:
@@ -296,13 +311,14 @@ class VoltageControlEnv:
         explicit ``t0``, ``noise`` and ``a0`` of the first attempt."""
         draws = draws or {}
         t0 = draws.get("t0")
-        if t0 is None:
-            t0 = self._sample_start(n_lanes, generator)
+        t0 = self._sample_start(n_lanes, generator) if t0 is None else lanes.given(t0)
         state, ok = self._attempt_reset(t0, True, generator,
                                         noise=draws.get("noise"),
                                         a0=draws.get("a0"))
         tries = 1
-        while tries < self.cfg.reset_retries and not bool(ok.all()):
+        # under a lane shard every rank retries while a lane of any rank
+        # failed, so that all ranks draw alike
+        while tries < self.cfg.reset_retries and not lanes.all_lanes(ok):
             again, ok2 = self._attempt_reset(
                 self._sample_start(n_lanes, generator), True, generator)
             state = select_state(ok, state, again)
@@ -498,12 +514,11 @@ class VoltageControlEnv:
         draws = draws or {}
         out = self.step(states, sgen_actions, generator, add_noise,
                         noise=draws.get("step_noise"))
-        if not always_reset and not bool(out.terminated.any()):
+        if not always_reset and not lanes.any_lane(out.terminated):
             return out
         n_lanes = out.reward.shape[0]
         t0 = draws.get("t0")
-        if t0 is None:
-            t0 = self._sample_start(n_lanes, generator)
+        t0 = self._sample_start(n_lanes, generator) if t0 is None else lanes.given(t0)
         fresh, ok = self._attempt_reset(
             t0, add_noise, generator, vm0=states.vm, va0=states.va,
             noise=draws.get("reset_noise"), a0=draws.get("a0"))

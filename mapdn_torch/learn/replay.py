@@ -71,6 +71,12 @@ def _lane_choice(n_env, lanes, generator, device):
     return torch.randperm(n_env, generator=generator, device=device)[:lanes]
 
 
+def window_start(state: ReplayState, batch_size: int, generator=None) -> int:
+    """A window start, uniform over the filled region (oldest first)."""
+    return int(torch.randint(0, max(state.size - batch_size, 0) + 1, (),
+                             generator=generator, device=state.data.reward.device))
+
+
 def sample_window(state: ReplayState, batch_size: int, lanes: int | None = None,
                   generator=None, lane_idx=None, start=None) -> Transition:
     """Contiguous window of ``batch_size`` steps, (batch_size, n_env', ...),
@@ -93,8 +99,7 @@ def sample_window(state: ReplayState, batch_size: int, lanes: int | None = None,
             return state.data.map(lambda buf: torch.roll(buf[:, lane_idx], -oldest, 0))
         return state.data.map(lambda buf: torch.roll(buf, -oldest, 0))
     if start is None:
-        start = int(torch.randint(0, max(state.size - batch_size, 0) + 1, (),
-                                  generator=generator, device=device))
+        start = window_start(state, batch_size, generator)
     idx = (oldest + start + torch.arange(batch_size, device=device)) % cap
     window = state.data.map(lambda buf: buf[idx])
     return subsample_lanes(window, lanes, lane_idx=lane_idx) if subsample else window

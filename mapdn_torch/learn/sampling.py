@@ -6,6 +6,8 @@ import math
 
 import torch
 
+from mapdn_torch.utils import lanes
+
 LOG2PI = math.log(2.0 * math.pi)
 
 
@@ -31,13 +33,15 @@ def policy_log_density(cfg, actions, means, log_stds):
     return normal_log_density(actions, means, log_stds)
 
 
-def draw_normal(given, shape, like, generator):
+def draw_normal(given, shape, like, generator, axis=0):
     """``given`` (an explicit draw) on ``like``'s device and dtype, or when
     it is None standard normals of ``shape`` drawn there from
-    ``generator``."""
+    ``generator``; ``axis`` is the draw's lane or batch-row axis (drawn,
+    or given, whole under a :class:`mapdn_torch.utils.lanes.LaneShard`)."""
     if given is not None:
-        return torch.as_tensor(given, device=like.device).to(like.dtype)
-    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+        return torch.as_tensor(lanes.given(given, axis), device=like.device).to(like.dtype)
+    return lanes.draw(lambda s: torch.randn(s, generator=generator, dtype=like.dtype,
+                                            device=like.device), shape, axis)
 
 
 def select_action_continuous(cfg, means, log_stds, *, status="train",
@@ -72,9 +76,17 @@ def select_action_continuous(cfg, means, log_stds, *, status="train",
 
 def batchnorm(x, dim=0, eps=1e-5):
     """Batch standardization with the population std (reference
-    util.py:155-159)."""
-    mean = torch.mean(x, dim=dim, keepdim=True)
-    std = torch.std(x, dim=dim, keepdim=True, correction=0)
+    util.py:155-159); under a lane shard the statistics are the whole
+    batch's (``dim`` 0, the batch rows)."""
+    shard = lanes.current()
+    if shard is None:
+        mean = torch.mean(x, dim=dim, keepdim=True)
+        std = torch.std(x, dim=dim, keepdim=True, correction=0)
+    else:
+        if dim != 0:
+            raise ValueError("a sharded batchnorm normalizes over the batch rows (dim 0)")
+        mean = lanes.row_sum(x)[None] / shard.n_global
+        std = torch.sqrt(lanes.row_sum((x - mean) ** 2)[None] / shard.n_global)
     return (x - mean) / (std + eps)
 
 

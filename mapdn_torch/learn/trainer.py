@@ -45,6 +45,7 @@ may be missing (a loss's draws are named by its model, e.g. MATD3's
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Dict
 
@@ -119,8 +120,14 @@ class PGTrainer:
         every later draw from a generator on the trainer's device."""
         algo = self.model.init_state(torch.Generator().manual_seed(seed))
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        env_state, obs, _ = self.env.reset(self.n_envs, gen)
+        with self._lane_context():
+            env_state, obs, _ = self.env.reset(self.n_envs, gen)
         return self.carry_from(env_state, obs, algo, gen)
+
+    def _lane_context(self):
+        """The context the env lanes step in: none in one process (a
+        sharded trainer's lane shard)."""
+        return contextlib.nullcontext()
 
     def carry_from(self, env_state, obs, algo, generator, last_hid=None):
         """A fresh carry (empty ring or episode pool, step 0) around given
@@ -131,7 +138,7 @@ class PGTrainer:
         if self.cfg.episodic:
             # replay_buffer_size counts episodes, and a rollout stores n_envs
             # of them (mapdn_tpu/learn/trainer.py:103-113)
-            slots = max(1, -(-int(self.cfg.replay_buffer_size) // self.n_envs))
+            slots = max(1, -(-int(self.cfg.replay_buffer_size) // self.cfg.n_envs))
             replay = rb.init_episode_replay(slots, example, self.cfg.max_steps)
         else:
             replay = rb.init_replay(self._ring_capacity, example)
@@ -185,11 +192,13 @@ class PGTrainer:
         v = self._rollout_value(algo, states.reshape((t * l,) + tuple(states.shape[2:])))
         return v.reshape(t, l, -1)
 
-    @torch.no_grad()
     def _rollout_step(self, carry: TrainerCarry, draws=None):
         """One vectorized env step: act, step every lane (auto-reset), and
         emit the transition and the step's stats."""
-        draws = draws or {}
+        with torch.no_grad(), self._lane_context():
+            return self._rollout_step_body(carry, draws or {})
+
+    def _rollout_step_body(self, carry, draws):
         model = self.model
         gen = carry.generator
         _, action_pol, log_prob, _, hid = model.get_actions(
@@ -234,54 +243,80 @@ class PGTrainer:
         ``draws[which + "_lanes" | "_starts" | "_loss"]`` give each epoch's
         draws where present."""
         cfg = self.cfg
-        model = self.model
         if epochs <= 0:
             return {}
-        lanes = cfg.update_lanes
-        subsampling = lanes is not None and lanes < self.n_envs
-        fixed_window = None
-        if not cfg.episodic and replay.capacity == cfg.batch_size and not subsampling:
-            fixed_window = rb.sample_window(replay, cfg.batch_size, generator=generator)
+        subsampling = cfg.update_lanes is not None and cfg.update_lanes < cfg.n_envs
+        fixed = (not cfg.episodic and replay.capacity == cfg.batch_size
+                 and not subsampling)
+        fixed_batch = self._sample_batch(replay, generator, which, 0, draws) if fixed else None
         epoch_draws = lambda key, e: None if draws.get(key) is None else draws[key][e]
         stats = []
         for e in range(epochs):
-            if cfg.episodic:
-                # batch_size counts whole episodes (reference default.yaml:21)
-                batch = rb.sample_episodes(replay, cfg.batch_size, generator,
-                                           draws=epoch_draws(which + "_episodes", e))
-            elif fixed_window is not None:
-                batch = fixed_window
-            else:
-                batch = rb.sample_window(
-                    replay, cfg.batch_size, lanes, generator=generator,
-                    lane_idx=epoch_draws(which + "_lanes", e),
-                    start=epoch_draws(which + "_starts", e))
-            batch = batch.map(self._upcast)
-            loss_kw = dict(generator=generator, draws=epoch_draws(which + "_loss", e))
-            if which in ("value", "mixer"):
-                # the mixer epochs descend the same value loss, with respect
-                # to the mixer's parameters (mapdn_tpu/learn/trainer.py:341-353)
-                _, vl, _ = model.get_loss(algo, batch, self.avail, policy=False, **loss_kw)
-                params = list(getattr(algo, which).parameters())
-                grads = _grads(vl, params)
-                gn = global_norm(grads)
-                getattr(model, which + "_tx").step(params, grads, getattr(algo, which + "_opt"))
-                stats.append({f"mean_train_{which}_loss": vl.detach(),
-                              f"mean_train_{which}_grad_norm": gn})
-            else:
-                pl, _, (means, log_stds) = model.get_loss(
-                    algo, batch, self.avail, value=False, **loss_kw)
-                ent = normal_entropy(means, log_stds)
-                if cfg.entr > 0:
-                    pl = pl - cfg.entr * ent
-                params = list(algo.policy.parameters())
-                grads = _grads(pl, params)
-                gn = global_norm(grads)
-                model.policy_tx.step(params, grads, algo.policy_opt)
-                stats.append({"mean_train_policy_loss": pl.detach(),
-                              "mean_train_policy_grad_norm": gn,
-                              "mean_train_entropy": ent.detach()})
+            batch, shard = fixed_batch or self._sample_batch(replay, generator, which, e, draws)
+            with shard.active() if shard is not None else contextlib.nullcontext():
+                stats.append(self._update_step(
+                    algo, batch.map(self._upcast), which, shard, generator,
+                    epoch_draws(which + "_loss", e)))
         return _mean_stats(stats)
+
+    def _sample_batch(self, replay, generator, which, e, draws):
+        """One epoch's batch, and the lane shard of its rows (None: every
+        row is here)."""
+        cfg = self.cfg
+        epoch_draws = lambda key: None if draws.get(key) is None else draws[key][e]
+        if cfg.episodic:
+            # batch_size counts whole episodes (reference default.yaml:21)
+            return rb.sample_episodes(replay, cfg.batch_size, generator,
+                                      draws=epoch_draws(which + "_episodes")), None
+        return rb.sample_window(replay, cfg.batch_size, cfg.update_lanes,
+                                generator=generator, lane_idx=epoch_draws(which + "_lanes"),
+                                start=epoch_draws(which + "_starts")), None
+
+    def _update_step(self, algo, batch, which, shard, generator, loss_draws):
+        """One optimizer step of ``which`` on ``batch``; returns its stats.
+        Under a lane shard the losses are this rank's shares of the whole
+        batch's, and the gradients and stats are summed over the ranks
+        before the clip and the step."""
+        cfg = self.cfg
+        model = self.model
+        loss_kw = dict(generator=generator, draws=loss_draws)
+        share = (lambda x: x) if shard is None else shard.share
+        if which in ("value", "mixer"):
+            # the mixer epochs descend the same value loss, with respect
+            # to the mixer's parameters (mapdn_tpu/learn/trainer.py:341-353)
+            _, loss, _ = model.get_loss(algo, batch, self.avail, policy=False, **loss_kw)
+            loss = share(loss)
+            params = list(getattr(algo, which).parameters())
+            logged = {f"mean_train_{which}_loss": loss.detach()}
+        else:
+            pl, _, (means, log_stds) = model.get_loss(
+                algo, batch, self.avail, value=False, **loss_kw)
+            ent = share(normal_entropy(means, log_stds))
+            loss = share(pl)
+            if cfg.entr > 0:
+                loss = loss - cfg.entr * ent
+            params = list(algo.policy.parameters())
+            logged = {"mean_train_policy_loss": loss.detach(),
+                      "mean_train_entropy": ent.detach()}
+        grads = list(_grads(loss, params))
+        if shard is not None:
+            summed = self._sum_over_ranks(grads + list(logged.values()))
+            grads = summed[:len(params)]
+            logged = dict(zip(logged, summed[len(params):]))
+        gn = global_norm(grads)
+        getattr(model, which + "_tx").step(params, grads, getattr(algo, which + "_opt"))
+        out = {f"mean_train_{which}_loss": logged.pop(f"mean_train_{which}_loss"),
+               f"mean_train_{which}_grad_norm": gn}
+        out.update(logged)
+        return out
+
+    def _rollout_stats(self, stat_list):
+        """The chunk's rollout stats: each step's lane means, averaged."""
+        return _mean_stats(stat_list)
+
+    def _sum_over_ranks(self, tensors):
+        """Each tensor summed over the ranks (one process has none)."""
+        raise NotImplementedError("only a sharded trainer sums over ranks")
 
     def _update_phase(self, algo, replay, generator, draws=None):
         cfg = self.cfg
@@ -344,7 +379,7 @@ class PGTrainer:
         if self.model.stores_rollout_value:
             self._fill_episode_values(carry, slot)
         carry.replay = rb.add_episode(carry.replay)
-        return carry, _mean_stats(roll_stats)
+        return carry, self._rollout_stats(roll_stats)
 
     def _episodic_update(self, carry: TrainerCarry, draws=None):
         """The update phase on batches of whole episodes, then the
@@ -376,7 +411,7 @@ class PGTrainer:
         if self._stack_emit:
             stacked = tail[0].map(lambda *xs: torch.stack(xs), *list(tail)[1:])
             carry.replay = rb.add_many(carry.replay, stacked)
-        stats = _mean_stats(roll_stats)
+        stats = self._rollout_stats(roll_stats)
         if self.model.stores_rollout_value:
             self._fill_ring_values(carry)
 

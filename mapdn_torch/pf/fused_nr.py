@@ -46,7 +46,6 @@ from mapdn_torch.utils import cuda_build
 
 
 SMALL_NB = 64   # the small kernel's (and pallas_nr.py's `small`) bus-count bound
-LARGE_MIN_BUS = 200   # "auto" sends larger grids to the large kernel (pallas_nr.py:605)
 LARGE_NPADS = (128, 256, 384)   # the padded bus counts the large kernel holds
 
 
@@ -689,40 +688,70 @@ def nr_solve_large(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20,
 nr_solve_large.launches = 0
 
 
-def make_solver(grid, *, backend="auto", tol=1e-7, max_iter=20, inner_iters=3):
+def solver_path(n_bus, backend="auto"):
+    """The solver :func:`make_solver` builds for a grid of ``n_bus`` buses:
+    ``"small"`` (:func:`nr_solve_small`), ``"large"``
+    (:func:`nr_solve_large`) or ``"torch"`` (:func:`nr_solve`)."""
+    if backend not in ("auto", "torch"):
+        raise ValueError(f"unknown pf backend '{backend}'")
+    if backend == "torch":
+        return "torch"
+    if n_bus <= SMALL_NB:
+        return "small"
+    return "large"
+
+
+def make_solver(grid, *, backend="auto", tol=1e-7, max_iter=20, inner_iters=3,
+                fixed_iter=None):
     """Batched solver ``solve(p, q, vm0, va0) -> PFResult`` for one grid,
     chosen by configuration, never by failure:
 
     * ``"auto"``: the small kernel's path (:func:`nr_solve_small`) for
       grids with n_bus <= 64, the large kernel's (:func:`nr_solve_large`)
-      for n_bus > 200 (the JAX package's own rule), the torch-op
-      :func:`nr_solve` in between (case69, case141);
-    * ``"kernel"``: the small kernel's path for n_bus <= 64, the large
-      kernel's above (as the JAX package's forced ``"pallas"``);
-    * ``"torch"``: always :func:`nr_solve`.
+      above;
+    * ``"torch"``: always :func:`nr_solve`, the reference path.
 
-    The kernel paths take their plain versions for CPU tensors.  Unlike the
-    JAX package's ``"auto"`` (XLA for n_bus <= 200), case33 runs a kernel.
+    "auto" is set by measurement on one NVIDIA H100 80GB HBM3 at its
+    700.00 W limit (``chip_smoke.py [solvers]``; PERF.md, PR 9): the whole
+    solve as the env pays it, median of 20 calls, flat / warm start, ms,
+
+    ======== ===== ================= =================
+    grid     lanes large kernel     torch-op solver
+    ======== ===== ================= =================
+    case69   512   1.1998 / 1.8530  3.5267 / 2.4938
+    case69   4096  1.7929 / 1.6909  4.0622 / 2.7471
+    case141  512   1.3091 / 1.5201  5.5853 / 5.7816
+    case141  4096  1.6183 / 1.6026  4.2033 / 5.3631
+    ======== ===== ================= =================
+
+    so every grid above 64 buses takes the large kernel.  The JAX
+    package's rule (its XLA solver up to 200 buses, measured on a TPU)
+    does not carry over.
+
+    The kernel paths take their plain versions for CPU tensors.
     A grid off the CPU that the large kernel cannot hold (npad above
     ``LARGE_NPADS``) raises here, when the solver is built, not at its
     first solve.
+
+    ``fixed_iter`` goes to the torch-op :func:`nr_solve` only; the kernels
+    run their loops on the card, where the early exit costs no host
+    read-back, and ignore it (as pallas_nr.py:590-599 says of the Pallas
+    kernels).
     """
-    if backend not in ("auto", "kernel", "torch"):
-        raise ValueError(f"unknown pf backend '{backend}'")
     kw = dict(tol=tol, max_iter=max_iter, inner_iters=inner_iters)
-    n = grid.n_bus
+    path = solver_path(grid.n_bus, backend)
     # each context is resolved here, once: its content key reads the grid's
     # operators back to the host, which must not happen per solve
-    if backend != "torch" and n <= SMALL_NB:
+    if path == "small":
         ctx = get_ctx_small(grid)
         return lambda p, q, vm0=None, va0=None: nr_solve_small(
             grid, p, q, vm0=vm0, va0=va0, ctx=ctx, **kw)
-    if backend == "kernel" or (backend == "auto" and n > LARGE_MIN_BUS):
+    if path == "large":
         if grid.device.type != "cpu":
-            _check_npad("make_solver", _npad(n))
+            _check_npad("make_solver", _npad(grid.n_bus))
         ctx = get_ctx(grid)
         return lambda p, q, vm0=None, va0=None: nr_solve_large(
             grid, p, q, vm0=vm0, va0=va0, ctx=ctx, **kw)
     ops = packed_operators(grid)
     return lambda p, q, vm0=None, va0=None: nr_solve(
-        grid, p, q, vm0=vm0, va0=va0, ops=ops, **kw)
+        grid, p, q, vm0=vm0, va0=va0, ops=ops, fixed_iter=fixed_iter, **kw)

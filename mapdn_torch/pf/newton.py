@@ -16,6 +16,10 @@ a non-finite error or on max vm^2 > 100 (reported as not converged).
 This is the ``"torch"`` backend of :func:`mapdn_torch.pf.fused_nr.make_solver`
 and the float64 path of the parity tests; the case33 hot path runs the
 hand-written CUDA kernel of :mod:`mapdn_torch.pf.fused_nr` instead.
+``nr_solve(fixed_iter=N)`` runs N masked iterations with no early exit (no
+host read-back).  :func:`nr_solve_dense` keeps the classical
+explicit-Jacobian Newton method with batched dense solves as the float64
+oracle of the parity tests.
 """
 from __future__ import annotations
 
@@ -69,12 +73,16 @@ def packed_operators(grid):
 
 
 def nr_solve(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20, inner_iters=3,
-             vm0=None, va0=None, ops=None):
+             vm0=None, va0=None, ops=None, fixed_iter=None):
     """Batched matrix-free NR solve of ``(..., n_bus)`` injections [pu]
     (generation positive, slack entries ignored); flat start by default.
 
     ``ops``: precomputed :func:`packed_operators` (computed here if None).
     Each loop iteration reads one flag back to the host for the early exit.
+    ``fixed_iter``: run exactly this many iterations instead, each gated by
+    the per-lane ``done`` flag, with no read-back (mapdn_tpu/pf/newton.py's
+    straight-line path); the same fixed point and convergence test, and a
+    lane that needs more iterations reports not converged.
     """
     n = grid.n_bus
     batch_shape = p_inj.shape[:-1]
@@ -129,8 +137,8 @@ def nr_solve(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20, inner_iters=3,
     # amax propagates NaN like jnp.max: a NaN lane never reads as converged
     done = err < tol
     it = torch.zeros(lanes, dtype=torch.int32, device=v.device)
-    for _ in range(max_iter):
-        if bool(done.all()):
+    for _ in range(max_iter if fixed_iter is None else fixed_iter):
+        if fixed_iter is None and bool(done.all()):
             break
         d = newton_dir(fvec, v, cur)
         gate = 1.0 - done[:, None].to(dtype)
@@ -153,6 +161,70 @@ def nr_solve(grid, p_inj, q_inj, *, tol=1e-7, max_iter=20, inner_iters=3,
     vm = torch.sqrt(e * e + f * f)
     va = torch.atan2(f, e)
     return _result(grid, vm, va, converged, it, batch_shape)
+
+
+def nr_solve_dense(grid, p_inj, q_inj, *, tol=1e-8, max_iter=20, vm0=None,
+                   va0=None):
+    """Classical explicit-Jacobian NR with batched dense solves
+    (``torch.linalg.solve``): the float64 oracle of the parity tests
+    (mapdn_tpu/pf/newton.py::nr_solve_dense).  Unlike :func:`nr_solve`: the
+    mismatch is absolute in pu, a done lane's Jacobian is the identity, a
+    lane diverges on vm > 10, and ``n_iter`` is the loop's count for every
+    lane."""
+    g_mat, b_mat = grid.g_mat, grid.b_mat
+    n = grid.n_bus
+    batch_shape = p_inj.shape[:-1]
+    dtype = g_mat.dtype
+    p_inj = p_inj.reshape(-1, n).to(dtype)
+    q_inj = q_inj.reshape(-1, n).to(dtype)
+    lanes = p_inj.shape[0]
+    if vm0 is None:
+        vm0 = torch.ones((lanes, n), dtype=dtype, device=p_inj.device)
+        vm0[:, 0] = grid.slack_vm
+    if va0 is None:
+        va0 = torch.zeros((lanes, n), dtype=dtype, device=p_inj.device)
+    vm = vm0.reshape(-1, n).to(dtype)
+    va = va0.reshape(-1, n).to(dtype)
+    eye2 = torch.eye(2 * (n - 1), dtype=dtype, device=p_inj.device)
+    diag = torch.arange(n - 1, device=p_inj.device)
+
+    def mismatch(vm, va):
+        p, q = _calc_pq(grid, vm * torch.cos(va), vm * torch.sin(va))
+        return torch.cat([p_inj[:, 1:] - p[:, 1:], q_inj[:, 1:] - q[:, 1:]], -1)
+
+    done = mismatch(vm, va).abs().amax(-1) < tol
+    it = 0
+    while it < max_iter and not bool(done.all()):
+        e = vm * torch.cos(va)
+        f = vm * torch.sin(va)
+        x1 = g_mat * e[:, None, :] - b_mat * f[:, None, :]
+        x2 = g_mat * f[:, None, :] + b_mat * e[:, None, :]
+        amat = e[:, :, None] * x1 + f[:, :, None] * x2
+        b2mat = f[:, :, None] * x1 - e[:, :, None] * x2
+        p = amat.sum(-1)
+        q = b2mat.sum(-1)
+        fvec = torch.cat([p_inj[:, 1:] - p[:, 1:], q_inj[:, 1:] - q[:, 1:]], -1)
+        a_nn = amat[:, 1:, 1:]
+        b_nn = b2mat[:, 1:, 1:]
+        dg_p = torch.zeros_like(a_nn)
+        dg_p[:, diag, diag] = p[:, 1:]
+        dg_q = torch.zeros_like(a_nn)
+        dg_q[:, diag, diag] = q[:, 1:]
+        jac = torch.cat([torch.cat([b_nn - dg_q, a_nn + dg_p], -1),
+                         torch.cat([-a_nn + dg_p, b_nn + dg_q], -1)], -2)
+        jac = torch.where(done[:, None, None], eye2, jac)
+        dx = torch.linalg.solve(jac, fvec[..., None])[..., 0]
+        keep = done[:, None]
+        va = torch.cat([va[:, :1], va[:, 1:] + torch.where(keep, 0.0, dx[:, :n - 1])], -1)
+        vm = torch.cat([vm[:, :1], vm[:, 1:] * torch.where(keep, 1.0, 1.0 + dx[:, n - 1:])], -1)
+        err = mismatch(vm, va).abs().amax(-1)
+        bad = ~torch.isfinite(err) | (vm.amax(-1) > 10.0)
+        done = done | (err < tol) | bad
+        it += 1
+    err = mismatch(vm, va).abs().amax(-1)
+    converged = (err < tol) & torch.isfinite(err)
+    n_iter = torch.full((lanes,), it, dtype=torch.int32, device=p_inj.device)
+    return _result(grid, vm, va, converged, n_iter, batch_shape)
 
 
 def _result(grid, vm, va, converged, n_iter, batch_shape):

@@ -11,13 +11,15 @@ script's) and its ``metrics_path``, and a uniform-random-action baseline on
 the same env build (the role of the reference's RandomAgent) with the
 trainer's per-episode mean-of-means weighting: ``random_baseline`` over
 256 episodes and ``random_baseline_sem``, the standard error of each mean
-over those episodes; ``random_baseline_case322`` where a case322 run is
-there.  The droop and OPF baselines of the JAX script wait for the port of
+over those episodes; ``random_baseline_case322`` and
+``random_baseline_case69`` (each with its ``_sem``) where a run of that
+case is there.  The droop and OPF baselines of the JAX script wait for the port of
 ``traditional/`` (ROADMAP A13).  The baseline runs on the GPU unless
 ``--platform cpu`` is given.
 
 Run names: ``<alg>`` is case33 distributed, ``<alg>_decentralised`` case33
-decentralised, ``<alg>_case322`` case322 distributed.
+decentralised, ``<alg>_case322`` case322 and ``<alg>_case69`` case69
+distributed.
 """
 from __future__ import annotations
 
@@ -30,6 +32,9 @@ import numpy as np
 import torch
 
 from mapdn_torch.scripts.train_zoo import ART, ROOT
+
+
+CASE_SUFFIXES = ("case322", "case69")   # a run named <alg>_<case> runs on <case>
 
 
 def random_episodes(case="case33", n_episodes=256, max_steps=240, seed=7,
@@ -125,8 +130,9 @@ def main(argv=None):
         if s:
             s["metrics_path"] = os.path.relpath(path, ROOT)
             runs[name] = s
-            if name.endswith("_case322"):
-                cases_needed.add("case322")
+            for case in CASE_SUFFIXES:
+                if name.endswith("_" + case):
+                    cases_needed.add(case)
 
     out = {}
     for case in sorted(cases_needed):

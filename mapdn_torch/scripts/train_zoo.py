@@ -6,10 +6,11 @@
     python -m mapdn_torch.scripts.train_zoo --jobs 4      # 4 runs at once
 
 The counterpart of scripts/train_zoo.py: the ten algorithms on
-case33_3min_final (distributed mode), one decentralised run and one
-case322 run, each 400 episodes of 512 lanes, seed 7, l1 barrier, 40
-synthetic days.  Each run is ``mapdn_torch.train.main`` on its flags, so it
-has the CLI's eval cadence, checkpoints and ``--resume``.  The CLI's
+case33_3min_final (distributed mode), one decentralised run, one
+case322 run and two case69 runs (maddpg, mappo), each 400 episodes of 512
+lanes, seed 7, l1 barrier, 40 synthetic days.  Each run is
+``mapdn_torch.train.main`` on its flags, so it has the CLI's eval cadence,
+checkpoints and ``--resume``.  The CLI's
 ``model_save/`` and ``tensorboard/`` go under ``--work`` (``build/zoo``);
 each run's ``metrics.jsonl`` and ``log.txt`` are copied to
 ``--out/<run>/`` (``artifacts/learning_torch``).
@@ -47,6 +48,9 @@ ALGS = ["iddpg", "maddpg", "matd3", "ippo", "mappo", "iac", "coma",
 RUNS = {a: (a, "case33_3min_final", "distributed") for a in ALGS}
 RUNS["maddpg_decentralised"] = ("maddpg", "case33_3min_final", "decentralised")
 RUNS["mappo_case322"] = ("mappo", "case322_3min_final", "distributed")
+# case69, the published 69-bus feeder (scripts/train_zoo.py:42-43)
+RUNS["maddpg_case69"] = ("maddpg", "case69", "distributed")
+RUNS["mappo_case69"] = ("mappo", "case69", "distributed")
 
 EPISODES = 400
 N_ENVS = 512

@@ -10,7 +10,15 @@ The same 3-layer config merge, per-scenario action ranges, directory layout
 ``tensorboard/<log_name>`` with ``metrics.jsonl`` and ``log.txt``),
 per-episode stat logging, eval and save cadences, final save and
 full-state ``--resume``.  The run is on the GPU; ``--platform cpu`` runs it
-on the CPU.  Flags of parts not ported yet raise ``NotImplementedError``.
+on the CPU.
+
+``--distributed --coordinator host:port --num-processes N --process-id i``
+runs rank i of N (one process each, started by the caller) over
+``torch.distributed``: NCCL with one card a rank on the GPU, gloo on the
+CPU; the env lanes are split over the ranks
+(:class:`mapdn_torch.parallel.ShardedPGTrainer`).  Rank 0 alone writes
+``tensorboard/`` and ``model_save/``; a run of several processes saves
+``model.pt`` and no resume checkpoint (train.py does the same).
 
 ``main(argv)`` can be called in-process; it returns a summary of the run.
 """
@@ -69,7 +77,8 @@ def parse_args(argv=None):
                         help="synthetic dataset length in days")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-GPU training (not ported yet)")
+                        help="one rank of a torch.distributed run: pass "
+                             "--coordinator/--num-processes/--process-id")
     parser.add_argument("--coordinator", type=str, default=None)
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
@@ -85,9 +94,16 @@ def parse_args(argv=None):
 
 
 def _save(model_dir, ckpt_dir, trainer):
+    """model.pt always; the full resume checkpoint only where this process
+    holds every lane (a run of several processes has each rank's lanes
+    apart; train.py:46-61 skips it alike)."""
     from mapdn_torch.utils.checkpoint import save_checkpoint, save_model
     save_model(os.path.join(model_dir, "model.pt"), trainer.carry.algo)
-    save_checkpoint(ckpt_dir, trainer.carry, trainer.steps, trainer.episodes)
+    if getattr(trainer, "world_size", 1) == 1:
+        save_checkpoint(ckpt_dir, trainer.carry, trainer.steps, trainer.episodes)
+    else:
+        print("multi-process run: skipping the full resume checkpoint "
+              "(each rank holds its own lanes; model.pt saved)")
 
 
 def _timed(device, fn):
@@ -102,19 +118,44 @@ def _timed(device, fn):
     return out, time.perf_counter() - t0
 
 
-def build_trainer(args):
+def init_distributed(args):
+    """Join the run's process group for ``--distributed`` (NCCL on the GPU,
+    one card a rank; gloo with ``--platform cpu``) and return this rank's
+    device; None without ``--distributed``.  Missing rendezvous flags, more
+    NCCL ranks than cards, or a failed rendezvous raise."""
+    from mapdn_torch.parallel import init_process_group, rank_device
+    from mapdn_torch.utils.device import resolve_device
+
+    if not args.distributed:
+        if args.coordinator or args.num_processes or args.process_id is not None:
+            raise ValueError("--coordinator/--num-processes/--process-id need --distributed")
+        return None
+    if not args.coordinator or args.num_processes is None or args.process_id is None:
+        raise ValueError("--distributed needs --coordinator host:port, --num-processes N "
+                         "and --process-id i (one process a rank, started by the caller)")
+    device = resolve_device(args.platform)
+    backend = "gloo" if device.type == "cpu" else "nccl"
+    init_process_group(args.coordinator, args.num_processes, args.process_id, backend)
+    device = rank_device(backend, args.process_id)
+    if device.type == "cuda":
+        import torch
+        torch.cuda.set_device(device)
+    return device
+
+
+def build_trainer(args, device=None):
     """(cfg, env_dict, trainer) of parsed flags: the 3-layer config, the
-    env and a set-up trainer of ``--alg`` on the flags' device."""
-    if args.distributed or args.coordinator or args.num_processes or args.process_id is not None:
-        raise NotImplementedError(
-            "multi-GPU training is not ported to mapdn_torch yet (ROADMAP A12)")
+    env and a set-up trainer of ``--alg`` on the flags' device (``device``
+    where given); under ``--distributed`` a sharded trainer over the
+    process group."""
     from mapdn_torch.algos import make_model
     from mapdn_torch.envs import make_env
     from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.parallel import ShardedPGTrainer
     from mapdn_torch.utils.config import load_config
     from mapdn_torch.utils.device import resolve_device
 
-    device = resolve_device(args.platform)
+    device = device if device is not None else resolve_device(args.platform)
     overrides = {"seed": args.seed}
     if args.n_envs:
         overrides["n_envs"] = args.n_envs
@@ -132,31 +173,49 @@ def build_trainer(args):
                       max_steps=min(cfg.max_steps, info["episode_limit"]))
     if args.max_steps:
         cfg = cfg.replace(max_steps=args.max_steps)
-    trainer = PGTrainer(cfg, make_model(args.alg, cfg, device=device), env).setup(seed=args.seed)
+    cls = ShardedPGTrainer if args.distributed else PGTrainer
+    trainer = cls(cfg, make_model(args.alg, cfg, device=device), env).setup(seed=args.seed)
     return cfg, env_dict, trainer
 
 
 def main(argv=None):
     """Run the CLI on ``argv`` (``sys.argv[1:]`` when None); returns a dict
     with the per-episode stats and the seconds each phase took."""
+    args = parse_args(argv)
+    device = init_distributed(args)
+    try:
+        return _run(args, device)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(args, device):
+    """The run of :func:`main` on parsed flags."""
     import torch
 
     from mapdn_torch.utils.checkpoint import restore_checkpoint
     from mapdn_torch.utils.logging import MetricsLogger
 
-    args = parse_args(argv)
-    cfg, env_dict, trainer = build_trainer(args)
+    cfg, env_dict, trainer = build_trainer(args, device)
     device = trainer.device
+    world = getattr(trainer, "world_size", 1)
+    is_main = getattr(trainer, "rank", 0) == 0
+    if args.resume and world > 1:
+        raise ValueError("--resume: a run of several processes writes no resume checkpoint")
 
     log_name = log_name_of(args)
     save_path = args.save_path.rstrip("/") + "/"
     model_dir = os.path.join(save_path, "model_save", log_name)
     tb_dir = os.path.join(save_path, "tensorboard", log_name)
-    os.makedirs(model_dir, exist_ok=True)
-    logger = MetricsLogger(tb_dir)
-    logger.log_config(cfg, env_dict)
+    logger = None
+    if is_main:
+        os.makedirs(model_dir, exist_ok=True)
+        logger = MetricsLogger(tb_dir)
+        logger.log_config(cfg, env_dict)
     print(f"{cfg}\n")
-    print(f"device: {device} n_envs={cfg.n_envs}")
+    print(f"device: {device} n_envs={cfg.n_envs} ranks={world}")
 
     ckpt_dir = os.path.join(model_dir, "checkpoint")
     summary = {"episode_s": [], "eval_s": [], "save_s": [], "restore_s": None,
@@ -182,6 +241,8 @@ def main(argv=None):
             stat.update(ev)
             summary["eval_s"].append(dt)
         summary["stats"].append(stat)
+        if not is_main:
+            continue
         logger.log(stat, trainer.episodes)
         if i % cfg.save_model_freq == cfg.save_model_freq - 1:
             env_sps = ((trainer.steps - steps0) * cfg.n_envs) / (time.time() - t0)
@@ -190,17 +251,19 @@ def main(argv=None):
                 print(f"{k}: {v:2.4f}")
             summary["save_s"].append(_timed(device, lambda: _save(model_dir, ckpt_dir, trainer))[1])
             print("The model is saved!\n")
-    if cfg.train_episodes_num % cfg.save_model_freq != 0:
+    if is_main and cfg.train_episodes_num % cfg.save_model_freq != 0:
         # final save: a run shorter than (or not divisible by) the save
         # cadence still leaves a loadable model.pt and a resumable checkpoint
         summary["save_s"].append(_timed(device, lambda: _save(model_dir, ckpt_dir, trainer))[1])
     with torch.no_grad():
         norm = sum(float(p.abs().sum()) for p in trainer.carry.algo.policy.parameters())
+    # every rank prints this (the ranks' parameters must agree)
     print(f"final_policy_param_l1: {norm:.10e}", flush=True)
-    logger.close()
+    if logger is not None:
+        logger.close()
     summary.update(final_policy_param_l1=norm, episodes=trainer.episodes,
                    n_envs=cfg.n_envs, max_steps=cfg.max_steps,
-                   model_dir=model_dir, tb_dir=tb_dir)
+                   model_dir=model_dir, tb_dir=tb_dir, world_size=world)
     return summary
 
 

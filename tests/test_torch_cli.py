@@ -268,10 +268,12 @@ def test_cli_off_policy_resume_matches_unkilled_run(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--alg", "mappo", "--distributed"], "A12"),
+    (["--alg", "mappo", "--distributed"], "--coordinator host:port"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """--distributed is ported (tests/test_torch_parallel.py); without its
+    rendezvous flags it raises before it trains."""
+    with pytest.raises(ValueError, match=match):
         train.main(["--platform", "cpu", "--save-path", str(tmp_path)] + flags)
 
 
@@ -373,7 +375,9 @@ def test_port_imports_no_jax():
         "        'mapdn_torch.algos.facmaddpg', 'mapdn_torch.learn.tester',\n"
         "        'mapdn_torch.train', 'mapdn_torch.test',\n"
         "        'mapdn_torch.scripts.train_zoo', 'mapdn_torch.scripts.learning_report',\n"
-        "        'mapdn_torch.envs.wrapper', 'mapdn_torch.code_examples'}\n"
+        "        'mapdn_torch.envs.wrapper', 'mapdn_torch.code_examples',\n"
+        "        'mapdn_torch.parallel', 'mapdn_torch.parallel.mesh',\n"
+        "        'mapdn_torch.native', 'mapdn_torch.utils.profiling'}\n"
         "       <= set(names))\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -10,7 +10,8 @@ import torch
 from threadpoolctl import threadpool_limits
 
 from mapdn_torch.grid import make_case as torch_case
-from mapdn_torch.pf.fused_nr import make_solver, nr_solve_small, nr_solve_small_ref
+from mapdn_torch.pf.fused_nr import (
+    make_solver, nr_solve_large_ref, nr_solve_small, nr_solve_small_ref)
 from mapdn_torch.pf.newton import nr_solve
 from mapdn_tpu.grid import make_case as jax_case
 from mapdn_tpu.grid.cases import _synthetic_radial as jax_radial
@@ -124,8 +125,9 @@ def test_small_plain_nan_lane_never_converges(case33):
 
 
 def test_solver_dispatch_by_configuration(case33):
-    """'auto' takes the kernel path for n_bus <= 64 (its plain version on
-    the CPU) and the torch-op solver above; 'torch' forces the latter."""
+    """'auto' takes the small kernel's path for n_bus <= 64 and the large
+    kernel's above (their plain versions on the CPU); 'torch' forces the
+    torch-op solver."""
     _, tgrid, p, q = case33
     pt, qt = torch.tensor(p), torch.tensor(q)
     launches = nr_solve_small.launches
@@ -140,6 +142,8 @@ def test_solver_dispatch_by_configuration(case33):
     _, p141, q141 = _injections("case141", 2)
     p141, q141 = torch.tensor(p141), torch.tensor(q141)
     big = make_solver(g141, backend="auto")(p141, q141)
-    np.testing.assert_array_equal(big.vm.numpy(), nr_solve(g141, p141, q141).vm.numpy())
-    with pytest.raises(ValueError):
-        make_solver(tgrid, backend="xla")
+    np.testing.assert_array_equal(big.vm.numpy(),
+                                  nr_solve_large_ref(g141, p141, q141).vm.numpy())
+    for name in ("xla", "kernel"):
+        with pytest.raises(ValueError, match="unknown pf backend"):
+            make_solver(tgrid, backend=name)
