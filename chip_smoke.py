@@ -102,6 +102,21 @@ one NCCL rank on each card, and compares their speed and policies.
 17. profiling   - ``device_trace`` around one 512-lane case33 MAPPO chunk: the
                   Chrome trace names the small kernel; ``PhaseTimer``'s
                   summary.
+18. traditional - ``droop_solve`` and ``opf_solve`` on the card (float32, every
+                  droop iteration a small-kernel solve) over the learning
+                  report's 256 case33 rows, against the CPU at float64 on
+                  the same rows; then ``engineering_baselines`` on the card
+                  beside the JAX package's committed baselines.
+19. converter   - tests/test_converter.py's five-bus feeder (a 110 kV slack, a
+                  transformer with an off-neutral tap) imported through
+                  ``from_pandapower`` onto the card and solved through
+                  ``make_solver`` (the small kernel): against its plain
+                  version and tests/fixtures/golden_feeder.json.
+20. render      - ``mapdn_torch.test.main --test-mode single --render`` on the
+                  maac model.pt that ``algos`` saved: one day on the card,
+                  then its frames (at most 48, PNG) and GIF; where
+                  matplotlib is not installed, that ``--render`` raises an
+                  ImportError naming it after the day's pickle is written.
 
 The line before the last two is the kernels' JSON record, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -1818,6 +1833,253 @@ def phase_profiling(smi, work):
         kernel_busy_ms=busy_ms, phases=timer.summary(), card=smi)
 
 
+# [traditional]: the card (float32) against the CPU (float64) on the same
+# rows.  Droop: per-lane iterations within 1, vm within the eval's 1e-4, q
+# within this share of each inverter's capacity.  OPF: the batch objective
+# (opf.py's scalar, the lanes' sum) within 1e-3 relative, and each lane's
+# card q, evaluated at float64 on the CPU, within 1e-3 relative of the
+# CPU's objective.  A lane's objective evaluated in float32 is not held
+# lane by lane: its loss of a few kW is the difference of branch flows of
+# MW, which float32 resolves to about a percent on the smallest lanes.
+DROOP_Q_TOL = 1e-3
+OPF_REL_TOL = 1e-3
+
+
+def phase_traditional(smi):
+    """The droop and OPF baselines over the learning report's 256 case33
+    rows on the card against the CPU (float64), the small kernel's launches
+    counted around droop (one solve a fixed-point iteration, while any lane
+    iterates, and the first); then the report's ``engineering_baselines``
+    on the card beside the JAX package's committed values."""
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+    from mapdn_torch.scripts.learning_report import baseline_points, engineering_baselines
+    from mapdn_torch.traditional import droop_solve, opf_solve
+    from mapdn_torch.traditional.opf import opf_objective
+
+    runs, seconds, launches = {}, {}, {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        points = baseline_points(n_samples=N_LANES_RANDOM, device=dev, dtype=dtype)
+        for name, solver in (("droop", droop_solve), ("opf", opf_solve)):
+            nr_solve_small.launches = 0
+            t0 = time.perf_counter()
+            runs[dev, name] = solver(*points)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                seconds[name] = time.perf_counter() - t0
+                launches[name] = nr_solve_small.launches
+        runs[dev] = points
+    cpu_env, lp, lq, pv = runs["cpu"]
+    cap = torch.sqrt(torch.clamp(cpu_env.ts.s_max**2 - pv**2, min=0.0))
+    host = lambda x: x.double().cpu()
+
+    (q, res, it), (q64, res64, it64) = runs["cuda", "droop"], runs["cpu", "droop"]
+    assert bool(res.converged.all()) and bool(res64.converged.all())
+    iter_diff = int((host(it) - it64).abs().max())
+    vm_err = float((host(res.vm) - res64.vm).abs().max())
+    q_err = float(((host(q) - q64).abs() / cap).max())
+    assert iter_diff <= 1 and vm_err <= 1e-4 and q_err <= DROOP_Q_TOL, (iter_diff, vm_err, q_err)
+    assert launches["droop"] == int(it.max()) + 1, (launches["droop"], int(it.max()))
+
+    (oq, ores, trace), (oq64, _, trace64) = runs["cuda", "opf"], runs["cpu", "opf"]
+    assert trace.shape == (N_LANES_RANDOM, 150) and bool(ores.converged.all())
+    assert bool((oq.abs() <= cap.to(oq) * (1 + 1e-6)).all())
+    assert bool((trace[:, -1] <= trace[:, 0]).all())
+    batch_rel = float((host(trace[:, -1]).sum() - trace64[:, -1].sum()).abs()
+                      / trace64[:, -1].sum())
+    at64 = opf_objective(cpu_env, lp, lq, pv, host(oq))
+    lane_rel = float(((at64 - trace64[:, -1]).abs() / trace64[:, -1].abs()).max())
+    f32_lane_rel = float(((host(trace[:, -1]) - trace64[:, -1]).abs()
+                          / trace64[:, -1].abs()).max())
+    assert batch_rel <= OPF_REL_TOL and lane_rel <= OPF_REL_TOL, (batch_rel, lane_rel)
+
+    nr_solve_small.launches = 0
+    t0 = time.perf_counter()
+    base = engineering_baselines(n_samples=N_LANES_RANDOM)
+    report_s = time.perf_counter() - t0
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                           "learning", "summary.json")) as fh:
+        jax_base = json.load(fh)
+    stats = {}
+    for key in ("droop_baseline", "opf_baseline"):
+        assert base[key]["n_samples"] == N_LANES_RANDOM, base[key]
+        assert all(math.isfinite(v) for v in base[key].values()), base[key]
+        for stat, short in (("mean_test_reward", "reward"),
+                            ("mean_test_totally_controllable_ratio", "ratio")):
+            stats[f"{key[:-9]}_{short}"] = base[key][stat]
+            stats[f"jax_{key[:-9]}_{short}"] = jax_base[key][stat]
+    say("traditional", lanes=N_LANES_RANDOM, droop_s=seconds["droop"],
+        droop_kernel_launches=launches["droop"], droop_max_n_iter=int(it.max()),
+        droop_min_n_iter=int(it.min()), droop_n_iter_max_diff=iter_diff,
+        droop_vm_max_abs_err=vm_err, droop_q_max_err_per_cap=q_err, opf_s=seconds["opf"],
+        opf_kernel_launches=launches["opf"], opf_batch_objective_rel_err=batch_rel,
+        opf_lane_objective_rel_err_at_f64=lane_rel,
+        opf_lane_objective_rel_err_f32=f32_lane_rel,
+        report_s=report_s, report_kernel_launches=nr_solve_small.launches, **stats, card=smi)
+
+
+def feeder_net():
+    """tests/test_converter.py's mock pandapower net (``make_mock_net``): a
+    5-bus MV feeder, a 110 kV slack at label 7 -> a 25 MVA transformer
+    tapped +2 -> 12.66 kV radial lines (one doubled) with zones, loads and
+    sgens, as pandas tables with pandapower's columns."""
+    from types import SimpleNamespace
+
+    import pandas as pd
+
+    bus = pd.DataFrame(
+        {"vn_kv": [110.0, 12.66, 12.66, 12.66, 12.66],
+         "zone": ["main", "main", "zone1", "zone1", "zone2"]},
+        index=[7, 3, 11, 12, 15])
+    ext_grid = pd.DataFrame({"bus": [7], "vm_pu": [1.02]})
+    line = pd.DataFrame({
+        "from_bus": [3, 11, 11], "to_bus": [11, 12, 15],
+        "length_km": [1.2, 0.7, 2.0], "r_ohm_per_km": [0.4, 0.3, 0.5],
+        "x_ohm_per_km": [0.35, 0.25, 0.4], "c_nf_per_km": [210.0, 150.0, 100.0],
+        "max_i_ka": [0.3, 0.25, 0.2], "parallel": [1, 2, 1]})
+    trafo = pd.DataFrame({
+        "hv_bus": [7], "lv_bus": [3], "vn_hv_kv": [110.0], "vn_lv_kv": [12.5],
+        "sn_mva": [25.0], "vk_percent": [11.0], "vkr_percent": [0.42],
+        "tap_pos": [2], "tap_neutral": [0], "tap_step_percent": [1.5]})
+    load = pd.DataFrame({"bus": [11, 12, 15], "p_mw": [1.5, 0.8, 1.1],
+                         "q_mvar": [0.5, 0.25, 0.3]})
+    sgen = pd.DataFrame({"bus": [12, 15], "p_mw": [0.6, 0.9], "name": ["zone1", "zone2"]})
+    return SimpleNamespace(sn_mva=1.0, f_hz=50.0, bus=bus, ext_grid=ext_grid,
+                           line=line, trafo=trafo, load=load, sgen=sgen)
+
+
+# [converter]: the feeder's float32 solve on the card against the float64
+# oracle of tests/fixtures/golden_feeder.json (vm, va and the total loss of
+# every branch, the transformer's included, in MW); on an H100 the kernel
+# read 1.5e-6, 6.7e-7 and 8.0e-6 there
+FEEDER_GOLDEN_TOL = 1e-5
+FEEDER_LANES = 256
+
+
+def phase_converter(smi):
+    """The five-bus feeder imported onto the card and solved through
+    ``make_solver`` ("auto": the small kernel, its first grid with a tap
+    ratio off 1 and two voltage levels): lane 0 at the feeder's base
+    injections against the golden fixture, and every lane (the injections
+    scaled 0.5-1.5) against the kernel's plain version on the same inputs
+    with ``[kernel]``'s tolerances."""
+    from mapdn_torch.grid.converter import from_pandapower
+    from mapdn_torch.pf.fused_nr import make_solver, nr_solve_small, nr_solve_small_ref
+
+    t0 = time.perf_counter()
+    grid, load_p, load_q, sgen_p = from_pandapower(feeder_net(), name="feeder",
+                                                   device="cuda")
+    import_s = time.perf_counter() - t0
+    assert grid.device.type == "cuda" and grid.n_bus == 5
+    tap = grid.tap.cpu().numpy()
+    assert abs(tap[3] - 1.0) > 1e-2 and len(set(grid.vn_kv.tolist())) == 2, tap
+    n = grid.n_bus
+    p, q = np.zeros(n), np.zeros(n)
+    np.add.at(p, grid.load_bus.cpu().numpy(), -load_p)
+    np.add.at(q, grid.load_bus.cpu().numpy(), -load_q)
+    np.add.at(p, grid.sgen_bus.cpu().numpy(), sgen_p)
+    scale = np.concatenate([[1.0], np.linspace(0.5, 1.5, FEEDER_LANES - 1)])[:, None]
+    as_t = lambda x: torch.as_tensor(x * scale / grid.sn_mva, dtype=torch.float32,
+                                     device="cuda")
+    p_t, q_t = as_t(p), as_t(q)
+
+    solve = make_solver(grid)
+    nr_solve_small.launches = 0
+    res = solve(p_t, q_t)
+    torch.cuda.synchronize()
+    launches = nr_solve_small.launches
+    assert launches == 1, launches
+    ref = nr_solve_small_ref(grid, p_t, q_t)
+    assert bool(res.converged.all()) and bool((res.converged == ref.converged).all())
+    same = res.n_iter == ref.n_iter
+    assert int((res.n_iter - ref.n_iter).abs().max()) <= 1
+    err = torch.maximum((res.vm - ref.vm).abs().amax(1), (res.va - ref.va).abs().amax(1))
+    worst_same = float(err[same].max()) if bool(same.any()) else 0.0
+    assert worst_same <= 2e-5 and float(err.max()) <= 1e-4, (worst_same, float(err.max()))
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "golden_feeder.json")) as fh:
+        gold = json.load(fh)
+    vm_err = float(np.abs(res.vm[0].double().cpu().numpy() - gold["vm"]).max())
+    va_err = float(np.abs(res.va[0].double().cpu().numpy() - gold["va"]).max())
+    loss_err = abs(float(res.pl_mw[0].double().sum()) - gold["total_loss_mw"])
+    assert max(vm_err, va_err, loss_err) <= FEEDER_GOLDEN_TOL, (vm_err, va_err, loss_err)
+    say("converter", n_bus=n, tap=float(tap[3]), lanes=FEEDER_LANES, import_s=import_s,
+        kernel_launches=launches, n_iter=int(res.n_iter[0]),
+        max_abs_err_vs_plain_same_iters=worst_same, max_abs_err_vs_plain=float(err.max()),
+        golden_vm_err=vm_err, golden_va_err=va_err, golden_total_loss_mw_err=loss_err,
+        golden_tol=FEEDER_GOLDEN_TOL, card=smi)
+
+
+MAX_FRAMES = 48   # render_record's default
+
+
+def phase_render(smi, work):
+    """``mapdn_torch.test.main --test-mode single --render`` in ``work`` on
+    the maac model.pt of ``phase_algos``: the day's small-kernel launches
+    (a reset and 479 steps), then its frames and GIF, their seconds apart
+    from the day's.  Where matplotlib is not installed, ``--render`` must
+    raise an ImportError naming it, after the day's pickle is written."""
+    import importlib.util
+
+    from mapdn_torch import test as test_cli
+    from mapdn_torch.envs import rendering
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+
+    flags = eval_flags("maac", "case33_3min_final") + [
+        "--save-path", os.path.join(work, "algos", "maac"), "--test-mode", "single",
+        "--render"]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    has_pil = importlib.util.find_spec("PIL") is not None
+    log_name = "var_voltage_control-case33_3min_final-distributed-maac-bowl"
+    pickle_path = os.path.join(work, f"test_record_{log_name}_day10.pickle")
+    if os.path.exists(pickle_path):
+        os.remove(pickle_path)      # phase_eval wrote the same day's record
+    render_record, draw_s = rendering.render_record, []
+
+    def timed_render_record(*args, **kw):
+        t0 = time.perf_counter()
+        paths = render_record(*args, **kw)
+        draw_s.append(time.perf_counter() - t0)
+        return paths
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    rendering.render_record = timed_render_record
+    nr_solve_small.launches = 0
+    t0 = time.perf_counter()
+    try:
+        if has_mpl:
+            out = test_cli.main(flags)
+        else:
+            try:
+                test_cli.main(flags)
+            except ImportError as e:
+                assert "matplotlib" in str(e), e
+            else:
+                raise AssertionError("--render ran without matplotlib")
+    finally:
+        rendering.render_record = render_record
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    launches = nr_solve_small.launches
+    assert launches == 480, launches
+    assert os.path.isfile(pickle_path), pickle_path
+    if not has_mpl:
+        say("render", matplotlib="absent", pillow="present" if has_pil else "absent",
+            import_error_after_pickle=True, kernel_launches=launches, wall_s=wall, card=smi)
+        return
+    frames = [os.path.join(work, path) for path in out["frames"]]
+    assert out["loaded"] and 0 < len(frames) <= MAX_FRAMES, len(frames)
+    for path in frames:
+        with open(path, "rb") as fh:
+            assert fh.read(8) == b"\x89PNG\r\n\x1a\n", path
+    gif = os.path.join(os.path.dirname(frames[0]), "replay.gif")
+    assert os.path.isfile(gif) == has_pil, gif
+    say("render", matplotlib="present", frames=len(frames), gif=os.path.isfile(gif),
+        day_s=out["seconds"], draw_s=draw_s[0], wall_s=wall, kernel_launches=launches,
+        card=smi)
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1838,6 +2100,9 @@ def main():
         phase_solvers(smi)
         phase_multigpu(smi, work)
         phase_profiling(smi, work)
+        phase_traditional(smi)
+        phase_converter(smi)
+        phase_render(smi, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": [small, large]}))

@@ -233,10 +233,17 @@ class VoltageControlEnv:
                                                 device=self.device), shape)
 
     # ------------------------------------------------------------- power flow
-    def _solve(self, load_p, load_q, pv_p, sgen_q, vm0=None, va0=None):
+    def _injections(self, load_p, load_q, pv_p, sgen_q):
+        """Bus injections [pu], generation positive, of (L, n_load) /
+        (L, n_sgen) device powers."""
         g = self.grid
         p = (pv_p @ g.sgen_inc.T - load_p @ g.load_inc.T) / g.sn_mva
         q = (sgen_q @ g.sgen_inc.T - load_q @ g.load_inc.T) / g.sn_mva
+        return p, q
+
+    def _solve(self, load_p, load_q, pv_p, sgen_q, vm0=None, va0=None):
+        g = self.grid
+        p, q = self._injections(load_p, load_q, pv_p, sgen_q)
         if vm0 is None:   # flat start (pandapower init='auto' for PQ nets)
             vm0 = torch.ones_like(p)
             vm0[:, 0] = g.slack_vm

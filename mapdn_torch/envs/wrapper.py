@@ -132,12 +132,16 @@ class VoltageControlWrapper:
         return self._state.sgen_q[0].cpu().numpy()
 
     def render(self, mode="rgb_array"):
-        raise NotImplementedError(
-            "rendering is not ported to mapdn_torch yet (ROADMAP A13)")
+        """RGB frame of the current grid state
+        (reference voltage_control_env.py:654-657)."""
+        from mapdn_torch.envs.rendering import render
+        return render(self.env, self._state, mode=mode)
 
     def res_pf_plot(self, path="plot_save/pf_res_plot"):
-        raise NotImplementedError(
-            "the power-flow plot is not ported to mapdn_torch yet (ROADMAP A13)")
+        """Write PNG + HTML network heatmap
+        (reference voltage_control_env.py:659-674)."""
+        from mapdn_torch.envs.rendering import pf_res_plot
+        return pf_res_plot(self.env, self._state, path)
 
     def close(self):
         pass

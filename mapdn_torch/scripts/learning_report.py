@@ -13,9 +13,10 @@ trainer's per-episode mean-of-means weighting: ``random_baseline`` over
 256 episodes and ``random_baseline_sem``, the standard error of each mean
 over those episodes; ``random_baseline_case322`` and
 ``random_baseline_case69`` (each with its ``_sem``) where a run of that
-case is there.  The droop and OPF baselines of the JAX script wait for the port of
-``traditional/`` (ROADMAP A13).  The baseline runs on the GPU unless
-``--platform cpu`` is given.
+case is there; and ``droop_baseline`` and ``opf_baseline``
+(``engineering_baselines``: the droop and OPF dispatch of
+``mapdn_torch.traditional`` over 256 sampled case33 dataset rows).  The
+baselines run on the GPU unless ``--platform cpu`` is given.
 
 Run names: ``<alg>`` is case33 distributed, ``<alg>_decentralised`` case33
 decentralised, ``<alg>_case322`` case322 and ``<alg>_case69`` case69
@@ -85,6 +86,44 @@ def random_baseline(case="case33", n_episodes=256, max_steps=240, seed=7,
     return _means(random_episodes(case, n_episodes, max_steps, seed, draws, device))
 
 
+def baseline_points(case="case33", n_samples=256, seed=7, device=None,
+                    dtype=torch.float32):
+    """(env, load_p, load_q, pv_p): the JAX script's env build (40 synthetic
+    days of seed 7) and ``n_samples`` of its dataset rows, drawn by
+    ``np.random.default_rng(seed)`` as the JAX script draws them."""
+    from mapdn_torch.envs import EnvConfig, make_env
+
+    env = make_env(case, EnvConfig(episode_limit=240), days=40, seed=7,
+                   dtype=dtype, device=device)
+    rng = np.random.default_rng(seed)
+    rows = torch.as_tensor(rng.integers(0, env.ts.n_steps, size=n_samples),
+                           device=env.device)
+    return env, env.ts.load_p[rows], env.ts.load_q[rows], env.ts.pv[rows]
+
+
+def engineering_baselines(case="case33", n_samples=256, seed=7, device=None,
+                          dtype=torch.float32):
+    """Droop and OPF dispatch metrics over ``n_samples`` dataset rows
+    (quasi-static operating points, no noise; ``baseline_points``), all rows
+    in one batch: the JAX script's ``engineering_baselines``.  Lanes whose
+    final solve did not converge are dropped; ``n_samples`` is the count
+    kept."""
+    from mapdn_torch.traditional import droop_solve, opf_solve
+
+    env, load_p, load_q, pv_p = baseline_points(case, n_samples, seed, device, dtype)
+    out = {}
+    for name, solver in (("droop_baseline", droop_solve),
+                         ("opf_baseline", opf_solve)):
+        q, res, _ = solver(env, load_p, load_q, pv_p)
+        reward, info = env._calc_reward(res.vm, res.pl_mw, q)
+        info["reward"] = reward
+        ok = res.converged.cpu().numpy()
+        out[name] = {"mean_test_" + k: float(np.mean(v.double().cpu().numpy()[ok]))
+                     for k, v in info.items()}
+        out[name]["n_samples"] = int(ok.sum())
+    return out
+
+
 def curve_summary(path):
     recs = [json.loads(l) for l in open(path)]
     evals = [r for r in recs if "mean_test_reward" in r]
@@ -142,6 +181,8 @@ def main(argv=None):
         out[key] = _means(lanes)
         out[key + "_sem"] = {k: float(np.std(v, ddof=1) / np.sqrt(len(v)))
                              for k, v in lanes.items()}
+    print("computing droop/opf baselines...", flush=True)
+    out.update(engineering_baselines("case33", device=device))
     out.update(runs)
 
     dest = os.path.join(args.art, "summary.json")

@@ -11,13 +11,16 @@ pickling test.py's record under test.py's file name in the working
 directory:
 
 * ``single``: the telemetry of one day (``test_record_<log_name>_day<d>``);
+  with ``--render``, then PNG frames of the day (at most 48) and a GIF in
+  ``render_<log_name>_day<d>/`` (matplotlib, and Pillow for the GIF);
 * ``day_sweep``: per-day means over ``--sweep-days`` days from
   ``--test-day`` (``..._days<first>-<last>``);
 * ``batch``: each metric's mean and 2 std over ``--test-episodes`` random
   episodes (``..._batch``).
 
 The run is on the GPU; ``--platform cpu`` runs it on the CPU.  ``main(argv)``
-can be called in-process; it returns a summary of the run.
+can be called in-process; it returns a summary of the run (with
+``--render``, the frames' paths under ``frames``).
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ def parse_args(argv=None):
                         help="synthetic dataset length in days")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--render", action="store_true",
-                        help="PNG frames of the single-day replay (not ported yet)")
+                        help="write PNG frames of the single-day replay")
     parser.add_argument("--platform", type=str, default=None,
                         help="torch device to run on (default: the GPU; "
                              "'cpu' runs on the CPU)")
@@ -104,9 +107,6 @@ def main(argv=None):
     import torch
 
     args = parse_args(argv)
-    if args.render:
-        raise NotImplementedError(
-            "--render is not ported to mapdn_torch yet (ROADMAP A13)")
     tester, log_name, loaded = build_tester(args)
     device = tester.env.device
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -126,6 +126,7 @@ def main(argv=None):
     seconds = time.perf_counter() - t0
     with open(out, "wb") as f:
         pickle.dump(record, f, pickle.HIGHEST_PROTOCOL)
+    frames = None
     if args.test_mode == "day_sweep":
         rw = record["reward"]
         worst = days[min(range(len(rw)), key=lambda i: rw[i])]
@@ -133,13 +134,18 @@ def main(argv=None):
               f"{sum(rw) / len(rw):.4f}, worst day {worst}")
     elif args.test_mode == "single":
         print(f"wrote {out} ({len(record['bus_voltage'])} steps)")
+        if args.render:
+            from mapdn_torch.envs.rendering import render_record
+            frames = render_record(tester.env, record,
+                                   f"render_{log_name}_day{args.test_day}")
+            print(f"wrote {len(frames)} frames to {os.path.dirname(frames[0])}")
     else:
         print("Test Results:")
         for k, (m, s2) in sorted(record.items()):
             print(f"{k}: mean: {m:2.4f}, \t2std: {s2:2.4f}")
         print(f"wrote {out}")
     return {"out": out, "record": record, "seconds": seconds, "loaded": loaded,
-            "device": str(device)}
+            "device": str(device), "frames": frames}
 
 
 if __name__ == "__main__":

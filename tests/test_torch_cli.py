@@ -349,9 +349,21 @@ def test_test_cli_evaluates_a_trained_model(trained_maac, tmp_path, monkeypatch,
         assert all(len(v) == 2 and all(map(math.isfinite, v)) for v in record.values())
 
 
-def test_test_cli_refuses_render(tmp_path):
-    with pytest.raises(NotImplementedError, match="A13"):
-        test_cli.main(TEST_FLAGS + ["--save-path", str(tmp_path), "--render"])
+def test_test_cli_refuses_render(trained_maac, tmp_path, monkeypatch):
+    """Named for the refusal it held before rendering was ported: ``--render``
+    in ``single`` mode now writes the day's pickle, then at most 48 PNG
+    frames of the day and their GIF under ``render_<log_name>_day<d>/``
+    (test.py:99-104), and returns the frames' paths."""
+    monkeypatch.chdir(tmp_path)
+    out = test_cli.main(TEST_FLAGS + ["--save-path", trained_maac, "--render"])
+    log_name = "var_voltage_control-case33_3min_final-distributed-maac-bowl"
+    assert out["loaded"] and os.path.isfile(tmp_path / f"test_record_{log_name}_day10.pickle")
+    frames = out["frames"]
+    assert len(frames) == 48         # 480 states, every 10th
+    outdir = tmp_path / f"render_{log_name}_day10"
+    assert frames[0] == os.path.join(outdir.name, "step_0000.png")
+    assert all(os.path.getsize(tmp_path / f) > 0 for f in frames)
+    assert os.path.isfile(outdir / "replay.gif")
 
 
 def test_cli_runs_on_the_gpu_unless_asked(tmp_path, monkeypatch):
@@ -363,10 +375,12 @@ def test_cli_runs_on_the_gpu_unless_asked(tmp_path, monkeypatch):
 def test_port_imports_no_jax():
     """Every module of mapdn_torch, and chip_smoke.py, profile_torch.py and
     bench_torch.py, import in a process where importing jax or mapdn_tpu
-    fails."""
+    fails, and so does importing matplotlib, PIL or pandas: the port
+    imports those where it uses them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = sys.modules['mapdn_tpu'] = None\n"
+        "sys.modules['matplotlib'] = sys.modules['PIL'] = sys.modules['pandas'] = None\n"
         "import mapdn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(mapdn_torch.__path__, 'mapdn_torch.')]\n"
         "for name in names + ['chip_smoke', 'profile_torch', 'bench_torch']:\n"
@@ -377,7 +391,10 @@ def test_port_imports_no_jax():
         "        'mapdn_torch.scripts.train_zoo', 'mapdn_torch.scripts.learning_report',\n"
         "        'mapdn_torch.envs.wrapper', 'mapdn_torch.code_examples',\n"
         "        'mapdn_torch.parallel', 'mapdn_torch.parallel.mesh',\n"
-        "        'mapdn_torch.native', 'mapdn_torch.utils.profiling'}\n"
+        "        'mapdn_torch.native', 'mapdn_torch.utils.profiling',\n"
+        "        'mapdn_torch.traditional', 'mapdn_torch.traditional.droop',\n"
+        "        'mapdn_torch.traditional.opf', 'mapdn_torch.envs.rendering',\n"
+        "        'mapdn_torch.grid.converter'}\n"
         "       <= set(names))\n"
         "print(len(names))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -28,7 +28,9 @@ JAX draw's weights gives the JAX first evals
 The port's random baseline must agree with the JAX package's
 (artifacts/learning/summary.json) within 4·√2 standard errors: a
 statistical check of the env's semantics over whole days of random
-control.  Reads only JSON.
+control.  The port's droop and OPF baselines (``engineering_baselines``,
+computed on the card over the report's 256 rows) must be there and agree
+with the JAX package's committed ones.  Reads only JSON.
 """
 import json
 import math
@@ -196,3 +198,52 @@ def test_random_baseline_case69_agrees_with_jax(summary, stat):
     want = jax_rnd["random_baseline_case69"][stat]
     assert math.isfinite(port) and 0.0 < sem < 0.05
     assert abs(port - want) <= 4 * math.sqrt(2) * sem, (stat, port, want, sem)
+
+
+def test_engineering_baselines_present(summary):
+    """tests/test_learning.py's check on the port's summary: droop and OPF
+    context (the reference's traditional_control/*.m role), so a
+    controller is judged against engineering baselines and not only
+    against random actions; here over all 256 rows the report draws."""
+    for key in ("droop_baseline", "opf_baseline"):
+        assert key in summary, key
+        assert "mean_test_totally_controllable_ratio" in summary[key]
+        assert summary[key]["n_samples"] == 256
+        assert all(math.isfinite(v) for v in summary[key].values()), summary[key]
+
+
+# The card's engineering baselines (float32, the learning report's 256 rows)
+# against the JAX package's committed ones (artifacts/learning/summary.json,
+# float32 on a CPU).  Float32 against float64 of the same code on the CPU
+# over those rows (``engineering_baselines`` at each dtype): droop every
+# stat within 3.5e-6, OPF's reward within 7.4e-8 and its ratio equal (a lane
+# crossing the band's edge moves the ratio by 1/256 = 0.0039; OPF's penalty
+# leaves voltages on that edge).  Limits: droop 1e-4 on every stat, OPF's
+# reward 1e-3 and ratio 0.05, and the sample counts equal.
+ENGINEERING_STATS = (
+    "average_voltage", "average_voltage_deviation", "destroy",
+    "max_voltage_drop_deviation", "max_voltage_rise_deviation",
+    "percentage_of_higher_than_upper_v", "percentage_of_lower_than_lower_v",
+    "percentage_of_v_out_of_control", "q_loss", "reward", "total_line_loss",
+    "totally_controllable_ratio")
+ENGINEERING_LIMITS = (
+    [("droop_baseline", "mean_test_" + k, 1e-4) for k in ENGINEERING_STATS]
+    + [("opf_baseline", "mean_test_reward", 1e-3),
+       ("opf_baseline", "mean_test_totally_controllable_ratio", 0.05)]
+    + [(key, "n_samples", 0) for key in ("droop_baseline", "opf_baseline")])
+# checks that the committed values fail, with their numbers (ROADMAP Queue C)
+ENGINEERING_XFAIL = {
+    ("droop_baseline", "mean_test_q_loss"): (
+        "droop q_loss: the card's 0.280894 against JAX's committed 0.281293 (4.0e-4); "
+        "scripts/learning_report.py run today on the CPU at float32 gives 0.280894; "
+        "why the committed value differs is not established"),
+}
+
+
+@pytest.mark.parametrize("key,stat,limit", [
+    pytest.param(*case, marks=pytest.mark.xfail(strict=True, reason=ENGINEERING_XFAIL[case[:2]]))
+    if case[:2] in ENGINEERING_XFAIL else case for case in ENGINEERING_LIMITS])
+def test_engineering_baselines_agree_with_jax(summary, key, stat, limit):
+    jax_summary = _load(os.path.join(ROOT, "artifacts", "learning", "summary.json"))
+    port, want = summary[key][stat], jax_summary[key][stat]
+    assert abs(port - want) <= limit, (key, stat, port, want)

@@ -122,13 +122,18 @@ def test_trajectory_matches_the_jax_wrapper():
     assert tenv.get_env_info() == jenv.get_env_info()
 
 
-def test_render_and_plot_refuse_naming_a13():
+def test_render_and_plot_refuse_naming_a13(tmp_path):
+    """Named for the refusal it held before rendering was ported: the
+    wrapper's ``render`` now returns an RGB frame of its lane, and
+    ``res_pf_plot`` writes the PNG and HTML and returns the PNG's path."""
     env = VoltageControlWrapper("case33", days=8, device="cpu")
     env.reset()
-    with pytest.raises(NotImplementedError, match="A13"):
-        env.render()
-    with pytest.raises(NotImplementedError, match="A13"):
-        env.res_pf_plot()
+    frame = env.render()
+    assert frame.dtype == np.uint8 and frame.ndim == 3 and frame.shape[2] == 3
+    assert frame.std() > 0
+    path = str(tmp_path / "plot_save" / "pf_res_plot")
+    assert env.res_pf_plot(path) == path + ".png"
+    assert os.path.getsize(path + ".png") > 0 and os.path.isfile(path + ".html")
 
 
 def test_wrapper_runs_on_the_gpu_unless_asked(monkeypatch):
