@@ -117,6 +117,23 @@ one NCCL rank on each card, and compares their speed and policies.
                   then its frames (at most 48, PNG) and GIF; where
                   matplotlib is not installed, that ``--render`` raises an
                   ImportError naming it after the day's pickle is written.
+21. discrete    - the discrete-action helpers of ``learn/sampling.py`` on
+                  (512, 6, 5) float32 logits on the card against the same
+                  calls on the CPU with the same explicit draws: every
+                  branch of ``select_action_discrete`` (a tie in test mode),
+                  the Gumbel rsample's gradient through autograd, zero for
+                  the detached sample, each log-prob's; then draws from the
+                  card's generator.
+22. history     - one 512-lane case33 iddpg episode with ``history=3``
+                  (``library_trainer``): the small kernel's launches, every
+                  step's stacked obs against a stack of the card's own base
+                  frames rolled by hand, across the auto-resets.
+23. bf16        - the bench.py configuration (8192 lanes, ``bench_trainer``):
+                  one chunk with the bf16 ring and one with a float32 ring
+                  from the same carry and generator state: each bf16 field
+                  the float32 ring's rounded to bf16 bit for bit, the other
+                  fields float32, the update stats within 1e-2 relative; the
+                  rings' bytes and the peak memory of each chunk.
 
 The line before the last two is the kernels' JSON record, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
@@ -1324,18 +1341,19 @@ def phase_examples(smi):
         wrapper_ms_per_step=wrapper_step_ms, **vm_against_cpu(vms, iters), card=smi)
 
 
-def library_trainer(alg, **over):
+def library_trainer(alg, history=1, **over):
     """A case33 trainer at the sweep's 512 lanes built through the library,
     as ``phase_train`` builds bench.py's (neither this port's CLI nor
     train.py has a flag for ``episodic`` or ``shared_params``): the
     algorithm's configuration with ``over``, l1 barrier, 40 synthetic
-    days, float32, seed 0."""
+    days, ``history`` frames an observation, float32, seed 0."""
     from mapdn_torch.algos import make_model
     from mapdn_torch.envs import EnvConfig, make_env
     from mapdn_torch.learn.trainer import PGTrainer
     from mapdn_torch.utils.config import load_config
 
-    env = make_env("case33", EnvConfig(episode_limit=240), days=40, dtype=torch.float32)
+    env = make_env("case33", EnvConfig(episode_limit=240, history=history), days=40,
+                   dtype=torch.float32)
     info = env.get_env_info()
     cfg, _ = load_config(alg)
     cfg = cfg.replace(agent_num=info["n_agents"], obs_size=info["obs_shape"],
@@ -2080,6 +2098,218 @@ def phase_render(smi, work):
         card=smi)
 
 
+DISCRETE_SHAPE = (512, 6, 5)   # lanes, agents, actions
+DISCRETE_TOL = 1e-5            # float32 card against CPU: probabilities, log densities
+DISCRETE_GRAD_TOL = 1e-4       # a gradient's difference over its largest entry
+
+
+class DiscreteCfg:
+    """The config fields ``select_action_discrete`` reads."""
+    def __init__(self, epsilon_softmax=False, gumbel_softmax=False, softmax_eps=0.1):
+        self.epsilon_softmax = epsilon_softmax
+        self.gumbel_softmax = gumbel_softmax
+        self.softmax_eps = softmax_eps
+
+
+def _grad(loss, x):
+    """d loss / d x; zeros where the loss has no graph (a detached sample),
+    as ``jax.grad`` gives."""
+    return (torch.autograd.grad(loss, x, retain_graph=True)[0] if loss.requires_grad
+            else torch.zeros_like(x))
+
+
+def discrete_calls(logits, u, index, weights):
+    """Every discrete helper on ``logits``'s device with the given draws:
+    {name: (output, gradients or None)}; a branch of
+    ``select_action_discrete`` gives the gradients by logits of
+    sum(weights * actions) and of sum(log_prob)."""
+    from mapdn_torch.learn import sampling
+
+    out = {"categorical_entropy": (sampling.categorical_entropy(logits), None),
+           "multinomials_log_density": (sampling.multinomials_log_density(
+               torch.softmax(weights, -1), logits), None)}
+    for t in (0.1, 1.0):
+        out[f"gumbel_softmax_sample_T{t}"] = (
+            sampling.gumbel_softmax_sample(logits, t, u=u), None)
+    tied = logits.clone()
+    tied[0, 0, 1] = tied[0, 0, 0] = tied[0, 0].max()      # a tie at the top
+    greedy, lp = sampling.select_action_discrete(DiscreteCfg(), tied, status="test")
+    assert lp is None and float(greedy[0, 0, :2].sum()) == 2.0
+    out["test_greedy"] = (greedy, None)
+    for name, cfg, draws, exploration in (
+            ("epsilon_softmax", DiscreteCfg(epsilon_softmax=True, softmax_eps=0.1), index, True),
+            ("plain", DiscreteCfg(), index, True),
+            ("gumbel_rsample", DiscreteCfg(gumbel_softmax=True), u, True),
+            ("gumbel_detached", DiscreteCfg(gumbel_softmax=True), u, False)):
+        lg = logits.detach().clone().requires_grad_(True)
+        a, lp = sampling.select_action_discrete(cfg, lg, exploration=exploration, draws=draws)
+        grads = {"actions": _grad(torch.sum(weights * a), lg),
+                 "log_prob": _grad(torch.sum(lp), lg)}
+        out[name] = (torch.cat([a.detach(), lp.detach()], -1), grads)
+    return out
+
+
+def phase_discrete(smi):
+    """The discrete-action helpers on the card against the CPU on the same
+    inputs and draws (numpy seed 0); the Gumbel rsample's gradient against
+    the CPU's, the detached sample's zero; then the card's own draws."""
+    from mapdn_torch.learn import sampling
+
+    rng = np.random.default_rng(0)
+    logits = rng.normal(size=DISCRETE_SHAPE).astype(np.float32) * 2.0
+    u = rng.uniform(size=DISCRETE_SHAPE).astype(np.float32)
+    index = rng.integers(0, DISCRETE_SHAPE[-1], size=DISCRETE_SHAPE[:-1])
+    weights = rng.normal(size=DISCRETE_SHAPE).astype(np.float32)
+    t0 = time.perf_counter()
+    card_out = discrete_calls(*(torch.as_tensor(x, device="cuda") for x in
+                                (logits, u, index, weights)))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host_out = discrete_calls(*(torch.as_tensor(x) for x in (logits, u, index, weights)))
+    errors = {}
+    for name, (value, grad) in host_out.items():
+        cvalue, cgrad = card_out[name]
+        err = float((cvalue.cpu() - value).abs().max())
+        assert err <= DISCRETE_TOL * max(1.0, float(value.abs().max())), (name, err)
+        errors[name] = err
+        for which, g in (grad or {}).items():
+            cg = cgrad[which].cpu()
+            if which == "actions" and name != "gumbel_rsample":
+                # a one-hot draw or a detached sample: no gradient
+                assert not bool(g.any()) and not bool(cg.any()), (name, which)
+                continue
+            scale, gerr = float(g.abs().max()), float((cg - g).abs().max())
+            assert scale > 0 and gerr <= DISCRETE_GRAD_TOL * scale, (name, which, gerr, scale)
+            errors[f"{name}_grad_{which}"] = gerr
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lg = torch.as_tensor(logits, device="cuda")
+    for cfg in (DiscreteCfg(epsilon_softmax=True), DiscreteCfg(),
+                DiscreteCfg(gumbel_softmax=True)):
+        a, lp = sampling.select_action_discrete(cfg, lg, generator=gen)
+        assert a.device.type == "cuda" and tuple(lp.shape) == DISCRETE_SHAPE[:-1] + (1,)
+        assert bool(torch.isfinite(lp).all())
+        assert bool(torch.allclose(a.sum(-1), torch.ones_like(a[..., 0])))
+    say("discrete", shape=list(DISCRETE_SHAPE), dtype="float32", max_abs_err=errors,
+        tol=DISCRETE_TOL, grad_tol=DISCRETE_GRAD_TOL, card_calls_s=card_s, card=smi)
+
+
+HISTORY = 3
+
+
+def phase_history(smi):
+    """One 512-lane case33 iddpg episode with ``history=3``: at least 240
+    small-kernel launches, finite stats, and every step's obs equal to the
+    card's own base frames stacked by hand (two zero frames and the fresh
+    frame on a lane that auto-reset)."""
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+
+    free_memory()
+    trainer = library_trainer("iddpg", history=HISTORY)
+    env = trainer.env
+    n, base = env.n_agents, env.obs_base_size
+    assert trainer.cfg.obs_size == HISTORY * base
+    frames = trainer.carry.obs.reshape(N_LANES_ALGOS, n, HISTORY, base).clone()
+    step = env.batched_auto_reset_step
+    held = {"steps": 0, "equal": True,
+            "resets": torch.zeros((), dtype=torch.int64, device="cuda")}
+
+    def stacked_step(states, *args, **kw):
+        out = step(states, *args, **kw)
+        newest = env._base_obs(out.state)[:, :, None]
+        rolled = torch.cat([frames[:, :, 1:], newest], 2)
+        fresh = torch.cat([torch.zeros_like(frames[:, :, 1:]), newest], 2)
+        frames.copy_(torch.where(out.terminated[:, None, None, None], fresh, rolled))
+        held["equal"] = held["equal"] and torch.equal(out.obs,
+                                                      frames.reshape(N_LANES_ALGOS, n, -1))
+        held["resets"] += out.terminated.sum()
+        held["steps"] += 1
+        return out
+
+    env.batched_auto_reset_step = stacked_step
+    try:
+        stats, dt, launches = counted_episode(trainer, nr_solve_small)
+    finally:
+        del env.batched_auto_reset_step
+    resets = int(held["resets"])
+    assert held["steps"] == 240 and held["equal"], held
+    assert resets >= 1 and launches >= 240, (resets, launches)
+    say("history", alg="iddpg", history=HISTORY, n_envs=N_LANES_ALGOS, obs_size=HISTORY * base,
+        env_steps=held["steps"], kernel_launches=launches, auto_reset_lanes=resets,
+        stacks_equal=True, episode_s=dt, env_steps_per_s=240 * N_LANES_ALGOS / dt,
+        reward=stats["mean_train_reward"], value_loss=stats["mean_train_value_loss"],
+        card=smi)
+
+
+BF16_FIELDS = ("state", "next_state", "last_hid", "hid")
+BF16_STAT_RTOL = 1e-2
+
+
+def phase_bf16(smi):
+    """The bench.py configuration's chunk with the bf16 ring and with a
+    float32 ring, from one carry and one generator state: the rollouts are
+    the same, so each bf16 field equals the float32 ring's rounded to bf16
+    and the rollout's float32 fields are equal; the update stats (from
+    windows sampled alike) within ``BF16_STAT_RTOL``; the rings' bytes and
+    each chunk's peak memory."""
+    import copy
+    import dataclasses
+
+    from bench_torch import bench_trainer
+    from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.pf.fused_nr import nr_solve_small
+
+    free_memory()
+    bf16 = bench_trainer(N_LANES)
+    assert bf16.cfg.replay_bf16
+    f32 = PGTrainer(bf16.cfg.replace(replay_bf16=False), bf16.model, bf16.env)
+    start = bf16.carry
+    runs = {}
+    for name, trainer in (("bf16", bf16), ("f32", f32)):
+        gen = torch.Generator(device="cuda")
+        gen.set_state(start.generator.get_state())
+        env_state = dataclasses.replace(start.env_state, **{
+            k: v.clone() for k, v in vars(start.env_state).items()})
+        carry = trainer.carry_from(env_state, start.obs.clone(), copy.deepcopy(start.algo),
+                                   gen, start.last_hid.clone())
+        ring_bytes = pool_bytes(carry.replay)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nr_solve_small.launches = 0
+        t0 = time.perf_counter()
+        carry, stats = trainer._train_chunk(carry)
+        torch.cuda.synchronize()
+        runs[name] = dict(carry=carry, stats={k: float(v) for k, v in stats.items()},
+                          chunk_s=time.perf_counter() - t0, ring_bytes=ring_bytes,
+                          launches=nr_solve_small.launches,
+                          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    half, full = runs["bf16"]["carry"].replay.data, runs["f32"]["carry"].replay.data
+    for name in vars(half):
+        a, b = getattr(half, name), getattr(full, name)
+        if name in BF16_FIELDS:
+            assert a.dtype == torch.bfloat16 and b.dtype == torch.float32, name
+            assert torch.equal(a, b.to(torch.bfloat16)), name
+        else:
+            assert a.dtype == b.dtype == torch.float32, name
+            if name not in ("value", "next_value"):     # filled from the upcast states
+                assert torch.equal(a, b), name
+    value_err = float((half.value - full.value).abs().max())
+    stat_err = {}
+    for k, v in runs["f32"]["stats"].items():
+        w = runs["bf16"]["stats"][k]
+        assert math.isfinite(w), (k, w)
+        stat_err[k] = abs(w - v) / max(abs(v), 1e-12)
+        assert abs(w - v) <= BF16_STAT_RTOL * abs(v), (k, w, v)
+    for run in runs.values():
+        assert run["launches"] >= bf16._chunk_len, run["launches"]
+    say("bf16", n_envs=N_LANES, chunk_steps=bf16._chunk_len,
+        ring_bytes={k: r["ring_bytes"] for k, r in runs.items()},
+        peak_mem_gib={k: r["peak_mem_gib"] for k, r in runs.items()},
+        chunk_s={k: r["chunk_s"] for k, r in runs.items()},
+        kernel_launches={k: r["launches"] for k, r in runs.items()},
+        bf16_fields_equal_rounded=True, value_max_abs_diff=value_err,
+        stat_rel_diff=stat_err, stat_rtol=BF16_STAT_RTOL, card=smi)
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2103,6 +2333,9 @@ def main():
         phase_traditional(smi)
         phase_converter(smi)
         phase_render(smi, work)
+        phase_discrete(smi)
+        phase_history(smi)
+        phase_bf16(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"kernels": [small, large]}))

@@ -139,7 +139,13 @@ class MARLModel:
 
     def __init__(self, cfg, device=None, param_dtype=torch.float32):
         if not cfg.continuous:
-            raise NotImplementedError("only continuous actions are ported")
+            raise NotImplementedError(
+                "discrete action spaces: the voltage-control benchmark only "
+                "exercises the continuous path (reference args/default.yaml "
+                "continuous: True; its discrete loss branches are broken, "
+                "e.g. coma.py:83). The selection/density utilities exist in "
+                "learn.sampling (select_action_discrete, "
+                "multinomials_log_density) for custom discrete envs.")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.param_dtype = param_dtype

@@ -147,6 +147,27 @@ def load_flax_mixer(module: QMixer, params):
     return module
 
 
+def state_from_npz(model, path):
+    """An ``AlgoState`` of ``model`` holding the flax parameters saved in the
+    ``.npz`` at ``path``: its keys are ``<tree>/<flax path>`` with tree
+    ``policy``, ``value`` or ``mixer`` and the path's names joined by ``/``
+    (the layout of artifacts/learning_torch/jax_init/).  Targets are copies
+    and optimizer states zero, as ``model.state_from_modules`` makes them."""
+    trees = {}
+    with np.load(path) as saved:
+        for key in saved.files:
+            *parents, leaf = key.split("/")
+            node = trees
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = saved[key]
+    policy, value = from_flax(trees["policy"], trees["value"],
+                              model.make_policy_module(), model.make_value_module())
+    mixer = (load_flax_mixer(model.make_mixer_module(), trees["mixer"])
+             if model.uses_mixer else None)
+    return model.state_from_modules(policy, value, mixer)
+
+
 def from_flax(policy_params, value_params, policy, value):
     """Load flax policy and value parameter trees into the port's modules
     ``policy`` (the deterministic or Gaussian RNN/MLP agents) and ``value``

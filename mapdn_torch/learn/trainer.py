@@ -163,10 +163,13 @@ class PGTrainer:
             next_state=zb(*obs.shape[1:]), done=z(), last_step=z(),
             last_hid=zb(n, h), hid=zb(n, h_next))
 
-    @staticmethod
-    def _upcast(x):
-        """bf16-stored replay fields back to float32 at sample time."""
-        return x.float() if x.dtype == torch.bfloat16 else x
+    def _upcast(self, x):
+        """bf16-stored replay fields back to the compute dtype (the env's)
+        at sample time.  The JAX package upcasts to float32 and flax then
+        promotes to the parameters' dtype; bf16 widens exactly, so the
+        networks see the same values in the same dtype whenever the
+        parameters are at the compute dtype, float64 too."""
+        return x.to(self.env.dtype) if x.dtype == torch.bfloat16 else x
 
     # --------------------------------------------------------------- rollout
     def _rollout_value(self, algo, obs):

@@ -18,6 +18,11 @@ case is there; and ``droop_baseline`` and ``opf_baseline``
 ``mapdn_torch.traditional`` over 256 sampled case33 dataset rows).  The
 baselines run on the GPU unless ``--platform cpu`` is given.
 
+Where the bf16-ring A/B runs are there (``train_zoo``'s ``mappo_bf16``
+and ``maddpg_bf16`` under ``--art/bf16_ab/``), it also writes
+``bf16_ab/summary.json`` (``bf16_ab_summary``) with the fields of the JAX
+package's artifacts/bf16_ab/summary.json.
+
 Run names: ``<alg>`` is case33 distributed, ``<alg>_decentralised`` case33
 decentralised, ``<alg>_case322`` case322 and ``<alg>_case69`` case69
 distributed.
@@ -152,6 +157,35 @@ def curve_summary(path):
     }
 
 
+BF16_AB_ALGS = ("mappo", "maddpg")
+
+
+def late_eval_reward(path, n=5):
+    """The mean eval reward of a curve's last ``n`` evals."""
+    with open(path) as fh:
+        evals = [r["mean_test_reward"] for r in map(json.loads, fh) if "mean_test_reward" in r]
+    return float(np.mean(evals[-n:]))
+
+
+def bf16_ab_summary(art=ART):
+    """The bf16-ring A/B of the curves under ``art``: each algorithm's
+    late-5 eval-reward mean with the float32 ring (``<art>/<alg>``) and
+    the bf16 one (``<art>/bf16_ab/<alg>_bf16``), and ``delta_<alg>``,
+    bf16 less float32; None when a curve is missing."""
+    paths = {}
+    for alg in BF16_AB_ALGS:
+        paths[f"{alg}_f32"] = os.path.join(art, alg, "metrics.jsonl")
+        paths[f"{alg}_bf16"] = os.path.join(art, "bf16_ab", f"{alg}_bf16", "metrics.jsonl")
+    if not all(map(os.path.exists, paths.values())):
+        return None
+    runs = {name: late_eval_reward(path) for name, path in paths.items()}
+    return {"metric": ("bf16-ring learning parity (late-5 eval-reward mean, case33, "
+                       "400 eps, 512 lanes, seed 7)"),
+            "runs": runs,
+            **{f"delta_{alg}": runs[f"{alg}_bf16"] - runs[f"{alg}_f32"]
+               for alg in BF16_AB_ALGS}}
+
+
 def main(argv=None):
     from mapdn_torch.utils.device import resolve_device
 
@@ -190,6 +224,13 @@ def main(argv=None):
         json.dump(out, f, indent=1)
     print(json.dumps(out, indent=1))
     print(f"\nwrote {dest}")
+    ab = bf16_ab_summary(args.art)
+    if ab is not None:
+        ab_dest = os.path.join(args.art, "bf16_ab", "summary.json")
+        with open(ab_dest, "w") as f:
+            json.dump(ab, f, indent=1)
+        print(json.dumps(ab, indent=1))
+        print(f"wrote {ab_dest}")
     return out
 
 

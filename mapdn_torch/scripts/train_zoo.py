@@ -24,6 +24,16 @@ N at a time on the one card, its output in ``--work/<run>.log``.
 ``--episodes``, ``--n-envs``, ``--max-steps`` and ``--platform`` are
 passed to the CLI (a short check, or the CPU).
 Afterwards: ``python -m mapdn_torch.scripts.learning_report``.
+
+Six case33 runs (coma, iac, ippo, maac, mappo, facmaddpg) start from the
+JAX package's seed-7 initial weights, ``jax_init/<alg>.npz`` under
+``artifacts/learning_torch`` (written on the CPU by
+``python tests/test_torch_first_eval.py jax_init``), loaded before the
+first episode (``mapdn_torch.train.main(initial_weights=...)``; each
+run's ``log.txt`` names the file); the others from the port's own seed-7
+draw.  ``mappo_bf16`` and ``maddpg_bf16`` are the bf16-ring A/B: each
+trains with ``replay_bf16`` set in its config, from the same initial
+weights as ``mappo`` and ``maddpg``, its curve under ``--out/bf16_ab/``.
 """
 from __future__ import annotations
 
@@ -36,6 +46,7 @@ import signal
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 ART = os.path.join(ROOT, "artifacts", "learning_torch")
@@ -44,13 +55,28 @@ WORK = os.path.join(ROOT, "build", "zoo")
 ALGS = ["iddpg", "maddpg", "matd3", "ippo", "mappo", "iac", "coma",
         "sqddpg", "maac", "facmaddpg"]
 
-# run name -> (alg, scenario, mode)
-RUNS = {a: (a, "case33_3min_final", "distributed") for a in ALGS}
-RUNS["maddpg_decentralised"] = ("maddpg", "case33_3min_final", "decentralised")
-RUNS["mappo_case322"] = ("mappo", "case322_3min_final", "distributed")
+
+class Run(NamedTuple):
+    alg: str
+    scenario: str
+    mode: str
+    init: Optional[str] = None   # initial weights, a file under ART; None: the seed's draw
+    config: tuple = ()           # algorithm config overrides, (key, value) pairs
+    group: str = ""              # the curve's subdirectory of --out
+
+
+# case33 runs that start from the JAX package's seed-7 initial weights
+JAX_INIT = ("coma", "iac", "ippo", "maac", "mappo", "facmaddpg")
+RUNS = {a: Run(a, "case33_3min_final", "distributed",
+               init=f"jax_init/{a}.npz" if a in JAX_INIT else None) for a in ALGS}
+RUNS["maddpg_decentralised"] = Run("maddpg", "case33_3min_final", "decentralised")
+RUNS["mappo_case322"] = Run("mappo", "case322_3min_final", "distributed")
 # case69, the published 69-bus feeder (scripts/train_zoo.py:42-43)
-RUNS["maddpg_case69"] = ("maddpg", "case69", "distributed")
-RUNS["mappo_case69"] = ("mappo", "case69", "distributed")
+RUNS["maddpg_case69"] = Run("maddpg", "case69", "distributed")
+RUNS["mappo_case69"] = Run("mappo", "case69", "distributed")
+# the bf16 replay ring against the float32 one (artifacts/bf16_ab)
+RUNS.update({f"{a}_bf16": RUNS[a]._replace(config=(("replay_bf16", True),), group="bf16_ab")
+             for a in ("mappo", "maddpg")})
 
 EPISODES = 400
 N_ENVS = 512
@@ -88,10 +114,15 @@ def _forwarded(args):
 
 def cli_flags(name, args):
     """The training CLI's flags for run ``name``."""
-    alg, scenario, mode = RUNS[name]
-    return ["--alg", alg, "--scenario", scenario, "--mode", mode,
+    run = RUNS[name]
+    return ["--alg", run.alg, "--scenario", run.scenario, "--mode", run.mode,
             "--voltage-barrier-type", "l1", "--seed", str(SEED), "--days", "40",
             "--save-path", os.path.join(args.work, name)] + _forwarded(args)
+
+
+def out_dir(name, args):
+    """Where run ``name``'s curve is kept."""
+    return os.path.join(args.out, RUNS[name].group, name)
 
 
 def is_done(path, episodes):
@@ -112,16 +143,19 @@ def has_checkpoint(name, args):
 
 def run_one(name, args):
     """Train (or resume) one run through the CLI, in this process, and copy
-    its curve to ``--out/<name>``; returns the run's record."""
+    its curve to ``out_dir``; returns the run's record."""
     from mapdn_torch import train
 
+    run = RUNS[name]
     resume = has_checkpoint(name, args)
     if not resume:      # no checkpoint: a curve left beside it is stale
         shutil.rmtree(os.path.join(args.work, name), ignore_errors=True)
     t0 = time.time()
-    summary = train.main(cli_flags(name, args) + (["--resume"] if resume else []))
+    summary = train.main(cli_flags(name, args) + (["--resume"] if resume else []),
+                         config=dict(run.config),
+                         initial_weights=run.init and os.path.join(ART, run.init))
     wall = time.time() - t0
-    dest = os.path.join(args.out, name)
+    dest = out_dir(name, args)
     os.makedirs(dest, exist_ok=True)
     for f in ("metrics.jsonl", "log.txt"):
         shutil.copyfile(os.path.join(summary["tb_dir"], f), os.path.join(dest, f))
@@ -191,8 +225,8 @@ def main(argv=None):
     for name in wanted:
         if args.force:
             shutil.rmtree(os.path.join(args.work, name), ignore_errors=True)
-            shutil.rmtree(os.path.join(args.out, name), ignore_errors=True)
-        elif is_done(os.path.join(args.out, name, "metrics.jsonl"), args.episodes):
+            shutil.rmtree(out_dir(name, args), ignore_errors=True)
+        elif is_done(os.path.join(out_dir(name, args), "metrics.jsonl"), args.episodes):
             print(f"[{name}] already present, skipping", flush=True)
             continue
         todo.append(name)
@@ -201,8 +235,8 @@ def main(argv=None):
     else:
         failed = []
         for name in todo:
-            alg, scenario, mode = RUNS[name]
-            print(f"[{name}] training {alg} on {scenario} ({mode})...", flush=True)
+            run = RUNS[name]
+            print(f"[{name}] training {run.alg} on {run.scenario} ({run.mode})...", flush=True)
             try:
                 print(json.dumps(run_one(name, args)), flush=True)
             except Exception as e:  # keep sweeping; report at the end

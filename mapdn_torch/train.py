@@ -21,6 +21,11 @@ CPU; the env lanes are split over the ranks
 ``model.pt`` and no resume checkpoint (train.py does the same).
 
 ``main(argv)`` can be called in-process; it returns a summary of the run.
+Called so, it also takes, as train.py's flags do not, ``config`` (algorithm
+config overrides, e.g. ``{"replay_bf16": True}``) and ``initial_weights``
+(an ``.npz`` of flax parameter trees, :func:`mapdn_torch.convert.state_from_npz`,
+loaded before the first episode of a run that does not resume; its path is
+written to ``log.txt``).
 """
 from __future__ import annotations
 
@@ -143,11 +148,11 @@ def init_distributed(args):
     return device
 
 
-def build_trainer(args, device=None):
-    """(cfg, env_dict, trainer) of parsed flags: the 3-layer config, the
-    env and a set-up trainer of ``--alg`` on the flags' device (``device``
-    where given); under ``--distributed`` a sharded trainer over the
-    process group."""
+def build_trainer(args, device=None, config=None):
+    """(cfg, env_dict, trainer) of parsed flags: the 3-layer config (with
+    the algorithm config overrides ``config`` on top), the env and a set-up
+    trainer of ``--alg`` on the flags' device (``device`` where given);
+    under ``--distributed`` a sharded trainer over the process group."""
     from mapdn_torch.algos import make_model
     from mapdn_torch.envs import make_env
     from mapdn_torch.learn.trainer import PGTrainer
@@ -161,6 +166,7 @@ def build_trainer(args, device=None):
         overrides["n_envs"] = args.n_envs
     if args.episodes:
         overrides["train_episodes_num"] = args.episodes
+    overrides.update(config or {})
     cfg, env_dict = load_config(
         args.alg, env=args.env, scenario=args.scenario, mode=args.mode,
         voltage_barrier_type=args.voltage_barrier_type, overrides=overrides)
@@ -178,27 +184,29 @@ def build_trainer(args, device=None):
     return cfg, env_dict, trainer
 
 
-def main(argv=None):
+def main(argv=None, *, config=None, initial_weights=None):
     """Run the CLI on ``argv`` (``sys.argv[1:]`` when None); returns a dict
-    with the per-episode stats and the seconds each phase took."""
+    with the per-episode stats and the seconds each phase took.
+    ``config`` and ``initial_weights``: see the module docstring."""
     args = parse_args(argv)
     device = init_distributed(args)
     try:
-        return _run(args, device)
+        return _run(args, device, config, initial_weights)
     finally:
         if args.distributed:
             import torch.distributed as dist
             dist.destroy_process_group()
 
 
-def _run(args, device):
+def _run(args, device, config=None, initial_weights=None):
     """The run of :func:`main` on parsed flags."""
     import torch
 
+    from mapdn_torch.convert import state_from_npz
     from mapdn_torch.utils.checkpoint import restore_checkpoint
     from mapdn_torch.utils.logging import MetricsLogger
 
-    cfg, env_dict, trainer = build_trainer(args, device)
+    cfg, env_dict, trainer = build_trainer(args, device, config)
     device = trainer.device
     world = getattr(trainer, "world_size", 1)
     is_main = getattr(trainer, "rank", 0) == 0
@@ -213,7 +221,8 @@ def _run(args, device):
     if is_main:
         os.makedirs(model_dir, exist_ok=True)
         logger = MetricsLogger(tb_dir)
-        logger.log_config(cfg, env_dict)
+        logger.log_config(cfg, env_dict, initial_weights=initial_weights
+                          and os.path.relpath(initial_weights))
     print(f"{cfg}\n")
     print(f"device: {device} n_envs={cfg.n_envs} ranks={world}")
 
@@ -230,6 +239,11 @@ def _run(args, device):
         summary["start_episode"] = episodes
         logger.drop_after(episodes)
         print(f"resumed from {ckpt_dir} at episode {episodes} ({steps} env steps)")
+    elif initial_weights:
+        # optimizer states, targets (copies) and the generator as a fresh run
+        # makes them, around the given parameters
+        trainer.carry.algo = state_from_npz(trainer.model, initial_weights)
+        print(f"initial weights from {initial_weights}")
 
     t0 = time.time()
     steps0 = trainer.steps

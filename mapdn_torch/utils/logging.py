@@ -56,8 +56,9 @@ class MetricsLogger:
             fh.writelines(kept)
         self._jsonl = open(path, "a")
 
-    def log_config(self, alg_config, env_config):
-        """Config dump (reference train.py:107-111 log.txt)."""
+    def log_config(self, alg_config, env_config, initial_weights=None):
+        """Config dump (reference train.py:107-111 log.txt), and the file
+        the run's initial weights came from where given."""
         with open(os.path.join(self.log_dir, "log.txt"), "w") as f:
             f.write("alg_params:\n")
             for k, v in sorted(dataclasses.asdict(alg_config).items()):
@@ -65,6 +66,8 @@ class MetricsLogger:
             f.write("env_params:\n")
             for k, v in sorted(env_config.items()):
                 f.write(f"\t{k}: {v}\n")
+            if initial_weights:
+                f.write(f"initial_weights: {initial_weights}\n")
 
     def close(self):
         self._jsonl.close()

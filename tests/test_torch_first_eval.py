@@ -18,6 +18,14 @@ Run as a script, ``python tests/test_torch_first_eval.py`` prints the
 numbers behind these (a few minutes on the CPU): each draw's eval before
 training, the spread of that eval over 32 weight seeds in each package,
 and the port's trainer trained one 512-lane episode from each seed-7 draw.
+
+So the zoo's reruns start from the JAX draw itself:
+``python tests/test_torch_first_eval.py jax_init`` writes each
+``train_zoo.JAX_INIT`` algorithm's seed-7 initial parameters (policy,
+value and mixer trees) to ``artifacts/learning_torch/jax_init/<alg>.npz``
+(:func:`write_jax_init`, a few seconds); the tests below hold the
+committed files to the draw made live and the port's model loaded from one
+to the JAX model's eval.
 """
 import hashlib
 import json
@@ -35,7 +43,7 @@ sys.path.insert(0, ROOT)
 
 from mapdn_torch import convert  # noqa: E402
 from mapdn_torch.algos import make_model  # noqa: E402
-from mapdn_torch.scripts.train_zoo import ALGS, SEED  # noqa: E402
+from mapdn_torch.scripts.train_zoo import ALGS, ART, JAX_INIT, SEED  # noqa: E402
 from mapdn_torch.train import build_trainer, parse_args  # noqa: E402
 from mapdn_torch.utils.config import load_config  # noqa: E402
 from mapdn_tpu.algos import make_model as jax_make_model  # noqa: E402
@@ -67,6 +75,30 @@ def jax_seed_state(jmodel, seed=SEED):
     """The JAX trainer's initial AlgoState for ``seed``: ``init_carry``
     hands the first of three splits of ``PRNGKey(seed)`` to the model."""
     return jmodel.init_state(jax.random.split(jax.random.PRNGKey(seed), 3)[0])
+
+
+def jax_init_arrays(alg):
+    """{``<tree>/<flax path>``: array} of ``alg``'s seed-7 initial policy,
+    value and (where there is one) mixer parameters in the JAX package."""
+    from flax.traverse_util import flatten_dict
+
+    jmodel, _ = _models(alg)
+    state = jax_seed_state(jmodel)
+    trees = {"policy": state.policy_params, "value": state.value_params}
+    if jmodel.uses_mixer:
+        trees["mixer"] = state.mixer_params
+    return {f"{tree}/{path}": np.asarray(leaf) for tree, params in trees.items()
+            for path, leaf in flatten_dict(jax.device_get(params), sep="/").items()}
+
+
+def write_jax_init(dest=os.path.join(ART, "jax_init")):
+    """Write ``jax_init_arrays(alg)`` to ``dest/<alg>.npz`` for each
+    algorithm of ``train_zoo.JAX_INIT``."""
+    os.makedirs(dest, exist_ok=True)
+    for alg in JAX_INIT:
+        path = os.path.join(dest, f"{alg}.npz")
+        np.savez(path, **jax_init_arrays(alg))
+        print(f"wrote {os.path.relpath(path, ROOT)}", flush=True)
 
 
 def _np(tree):
@@ -227,6 +259,64 @@ def report():
                   flush=True)
 
 
+@pytest.mark.parametrize("alg", JAX_INIT)
+def test_committed_jax_init_is_the_jax_draw(alg):
+    """The committed ``jax_init/<alg>.npz`` holds exactly the JAX package's
+    seed-7 initial parameters as drawn now: same names, dtypes, values."""
+    want = jax_init_arrays(alg)
+    with np.load(os.path.join(ART, "jax_init", f"{alg}.npz")) as saved:
+        assert sorted(saved.files) == sorted(want)
+        for key, array in want.items():
+            assert saved[key].dtype == array.dtype, key
+            np.testing.assert_array_equal(saved[key], array, err_msg=key)
+
+
+@pytest.mark.parametrize("alg", ["mappo", "maac"])
+def test_model_from_jax_init_evaluates_as_jax(alg):
+    """The port's ``alg`` loaded from the committed ``jax_init/<alg>.npz``
+    (``convert.state_from_npz``, as ``train_zoo`` loads it) against the JAX
+    package's seed-7 draw on one greedy 240-step eval episode of the zoo's
+    env (case33 distributed, l1, 40 days of seed 7), float64 on both sides
+    with the eval's draws replayed: every stat within 1e-9 (the
+    tolerance of tests/test_torch_trainer.py's eval check).  mappo's
+    policy is every case33 run's but maac's, whose Gaussian agent adds a
+    log-std head."""
+    from mapdn_tpu.envs import make_env as jax_make_env
+    from mapdn_tpu.learn.trainer import PGTrainer as JaxPGTrainer
+    from test_torch_trainer import _eval_draws, _f64
+    from train import build_env_cfg as jax_env_cfg
+
+    from mapdn_torch.convert import state_from_npz
+    from mapdn_torch.envs import make_env
+    from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.train import build_env_cfg
+
+    over = dict(WIDTHS, num_eval_episodes=1)
+    jcfg, jenv_dict = jax_load_config(alg, scenario="case33_3min_final",
+                                      voltage_barrier_type="l1", overrides=over)
+    tcfg, tenv_dict = load_config(alg, scenario="case33_3min_final",
+                                  voltage_barrier_type="l1", overrides=over)
+    jenv = jax_make_env("case33_3min_final", jax_env_cfg(jenv_dict), days=40, seed=SEED,
+                        dtype=jax.numpy.float64)
+    tenv = make_env("case33_3min_final", build_env_cfg(tenv_dict), days=40, seed=SEED,
+                    dtype=torch.float64, device="cpu")
+    jtr = JaxPGTrainer(jcfg, jax_make_model(alg, jcfg), jenv)
+    key = jax.random.PRNGKey(EVAL_SEED)
+    jstats = jax.jit(jtr._eval_rollout)(_f64(jax_seed_state(jtr.model)), key)
+
+    tmodel = make_model(alg, tcfg, device="cpu", param_dtype=torch.float64)
+    algo = state_from_npz(tmodel, os.path.join(ART, "jax_init", f"{alg}.npz"))
+    tstats = PGTrainer(tcfg, tmodel, tenv)._eval_rollout(
+        algo, torch.Generator(), _eval_draws(key, jenv, jcfg))
+    assert set(tstats) == set(jstats)
+    for k, v in jstats.items():
+        np.testing.assert_allclose(float(tstats[k]), float(v), rtol=1e-9, atol=1e-10,
+                                   err_msg=k)
+
+
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
-    report()
+    if sys.argv[1:] == ["jax_init"]:
+        write_jax_init()
+    else:
+        report()

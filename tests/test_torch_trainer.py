@@ -62,28 +62,29 @@ def _np(x):
     return np.array(x, np.float64)
 
 
-def _lane_noise(env, keys):
+def _lane_noise(env, keys, dtype=jnp.float64):
     """The standard normals each lane's env draws from its key
-    (voltage_control.py:248-255)."""
+    (voltage_control.py:248-255), of the env's ``dtype``."""
     g = env.grid
     noise = [[], [], []]
     for k in keys:
         for i, (kk, size) in enumerate(zip(jax.random.split(k, 3),
                                            (g.n_sgen, g.n_load, g.n_load))):
-            noise[i].append(_np(jax.random.normal(kk, (size,), jnp.float64)))
+            noise[i].append(_np(jax.random.normal(kk, (size,), dtype)))
     return tuple(np.stack(z) for z in noise)
 
 
-def _replay_draws(rng, env, cfg):
-    """The draws of one JAX _train_chunk, from its carry's rng."""
+def _replay_draws(rng, env, cfg, dtype=jnp.float64):
+    """The draws of one JAX _train_chunk, from its carry's rng, at the
+    chunk's compute ``dtype``."""
     steps = []
     for _ in range(CHUNK):
         rng, k_act, k_env = jax.random.split(rng, 3)
-        action_noise = jax.random.normal(k_act, (L, env.n_agents, 1), jnp.float64)
+        action_noise = jax.random.normal(k_act, (L, env.n_agents, 1), dtype)
         k_step = jax.vmap(lambda k: jax.random.split(k, 3))(
             jax.random.split(k_env, L))[:, 0]
         steps.append({"action_noise": _np(action_noise),
-                      "env": {"step_noise": _lane_noise(env, k_step)}})
+                      "env": {"step_noise": _lane_noise(env, k_step, dtype)}})
     rng, k_upd = jax.random.split(rng)
     kv, kp, _ = jax.random.split(k_upd, 3)
 

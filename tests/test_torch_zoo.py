@@ -182,6 +182,78 @@ def test_train_zoo_runs_side_by_side(tmp_path, capsys):
         assert os.path.isfile(os.path.join(work, f"{run}.log"))
 
 
+def test_bf16_ab_summary_equals_jax(tmp_path):
+    """``learning_report.bf16_ab_summary`` over the JAX package's four A/B
+    curves laid out as the port's zoo writes them (``<alg>`` and
+    ``bf16_ab/<alg>_bf16``) gives artifacts/bf16_ab/summary.json."""
+    jax_ab = os.path.join(ROOT, "artifacts", "bf16_ab")
+    for alg in learning_report.BF16_AB_ALGS:
+        for run, dest in ((f"{alg}_f32", tmp_path / alg),
+                          (f"{alg}_bf16", tmp_path / "bf16_ab" / f"{alg}_bf16")):
+            dest.mkdir(parents=True)
+            with open(os.path.join(jax_ab, run, "metrics.jsonl")) as src:
+                (dest / "metrics.jsonl").write_text(src.read())
+    with open(os.path.join(jax_ab, "summary.json")) as fh:
+        want = json.load(fh)
+    assert learning_report.bf16_ab_summary(str(tmp_path)) == want
+    os.remove(tmp_path / "maddpg" / "metrics.jsonl")
+    assert learning_report.bf16_ab_summary(str(tmp_path)) is None
+
+
+def test_zoo_run_table():
+    """The runs that start from the JAX package's weights name a committed
+    file; the bf16 A/B runs are their float32 runs with ``replay_bf16`` set
+    and their curves under ``bf16_ab/``."""
+    for name, run in train_zoo.RUNS.items():
+        if run.init:
+            assert os.path.isfile(os.path.join(train_zoo.ART, run.init)), name
+    assert {n for n, r in train_zoo.RUNS.items() if r.init} == (
+        set(train_zoo.JAX_INIT) | {"mappo_bf16"})
+    for alg in learning_report.BF16_AB_ALGS:
+        run = train_zoo.RUNS[f"{alg}_bf16"]
+        assert run == train_zoo.RUNS[alg]._replace(config=(("replay_bf16", True),),
+                                                   group="bf16_ab")
+
+
+def test_train_zoo_starts_from_jax_weights_and_bf16(tmp_path, monkeypatch):
+    """A run of the table with initial weights starts its first episode from
+    the file's parameters, with targets their copies, and names the file in
+    its log.txt; a bf16 run logs ``replay_bf16: True`` and writes its curve
+    under ``bf16_ab/``."""
+    from mapdn_torch.algos import make_model
+    from mapdn_torch.convert import state_from_npz
+    from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.utils.config import load_config
+
+    first, run_episode = [], PGTrainer.run_episode
+
+    def recorded(self):
+        if not first:
+            first.append(self.carry.algo)
+        return run_episode(self)
+
+    monkeypatch.setattr(PGTrainer, "run_episode", recorded)
+    out, work = str(tmp_path / "out"), str(tmp_path / "work")
+    train_zoo.main(["mappo_bf16"] + ZOO_FLAGS + ["--episodes", "1", "--out", out,
+                                                 "--work", work])
+    with open(os.path.join(out, "bf16_ab", "mappo_bf16", "log.txt")) as fh:
+        log = fh.read()
+    assert "\treplay_bf16: True" in log
+    assert log.rstrip().endswith("initial_weights: artifacts/learning_torch/jax_init/mappo.npz")
+
+    cfg, _ = load_config("mappo", overrides=dict(agent_num=6, obs_size=38, action_dim=1))
+    model = make_model("mappo", cfg, device="cpu")
+    want = state_from_npz(model, os.path.join(train_zoo.ART, "jax_init", "mappo.npz"))
+    (algo,) = first
+    # the state the first episode started from: the file's weights, whose
+    # targets (copies, not updated within 10 steps) still hold them
+    port_draw = model.init_state(torch.Generator().manual_seed(train_zoo.SEED))
+    for got, ref in zip(algo.target_policy.parameters(), want.policy.parameters()):
+        assert torch.equal(got, ref)
+    assert not all(torch.equal(a, b) for a, b in zip(want.policy.parameters(),
+                                                     port_draw.policy.parameters()))
+
+
 def test_bench_torch_prints_bench_line(capsys):
     bench_torch.main(["--platform", "cpu", "--n-envs", "4", "--episodes", "2"])
     (line,) = capsys.readouterr().out.strip().splitlines()
