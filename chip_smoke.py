@@ -99,9 +99,10 @@ Phases, each printing one line; any failure exits non-zero:
 ``phase_multigpu_scaling`` (not in ``main``; for a machine of several cards)
 runs the CLI's case33 MAPPO at 4096 lanes as one process on one card and as
 one NCCL rank on each card, and compares their speed and policies.
-17. profiling   - ``device_trace`` around one 512-lane case33 MAPPO chunk: the
-                  Chrome trace names the small kernel; ``PhaseTimer``'s
-                  summary.
+17. profiling   - ``device_trace`` around one 512-lane case33 MAPPO chunk under
+                  an active ``Tracer``: the Chrome trace names the small
+                  kernel and the program's spans around it; the tracer's
+                  pf.solve host and stream times; ``PhaseTimer``'s summary.
 18. traditional - ``droop_solve`` and ``opf_solve`` on the card (float32, every
                   droop iteration a small-kernel solve) over the learning
                   report's 256 case33 rows, against the CPU at float64 on
@@ -1821,10 +1822,11 @@ def phase_multigpu_scaling(smi, work, episodes=3):
 
 def phase_profiling(smi, work):
     """``device_trace`` around one 512-lane case33 MAPPO chunk after a
-    warm-up chunk: the Chrome trace names the small kernel; ``PhaseTimer``
-    times set-up and both chunks."""
+    warm-up chunk, under an active ``Tracer``: the Chrome trace names the
+    small kernel, and each kernel inside a ``pf.solve`` range of the
+    program's; ``PhaseTimer`` times set-up and both chunks."""
     from mapdn_torch.pf.fused_nr import nr_solve_small
-    from mapdn_torch.utils.profiling import PhaseTimer, device_trace
+    from mapdn_torch.utils.profiling import PhaseTimer, Tracer, device_trace, tracing
 
     timer = PhaseTimer()
     with timer.phase("setup"):
@@ -1832,7 +1834,8 @@ def phase_profiling(smi, work):
     with timer.phase("chunk", block_on=trainer.carry.obs):
         carry, stats = trainer._train_chunk(trainer.carry)
     nr_solve_small.launches = 0
-    with device_trace(os.path.join(work, "trace")) as prof:
+    tracer = Tracer()
+    with tracing(tracer), device_trace(os.path.join(work, "trace")) as prof:
         with timer.phase("chunk_traced", block_on=stats):
             carry, stats = trainer._train_chunk(carry)
     launches = nr_solve_small.launches
@@ -1843,12 +1846,27 @@ def phase_profiling(smi, work):
     if not kernel or not launches:
         raise AssertionError(f"[profiling] the trace names {len(kernel)} nr_small "
                              f"kernels, the wrapper counted {launches} launches")
+    # the program's pf.solve ranges on the host, and the launches inside them
+    solves = [e for e in events if e.get("name") == "pf.solve" and e.get("cat") == "user_annotation"
+              and "dur" in e]
+    launch_ops = [e for e in events if e.get("cat") == "cuda_runtime" and "dur" in e
+                  and "Launch" in e.get("name", "")]
+    in_solve = sum(any(s["ts"] <= e["ts"] <= s["ts"] + s["dur"] for s in solves)
+                   for e in launch_ops)
+    summary = tracer.summary()
+    solve = summary["spans"].get("pf.solve", {})
+    if len(solves) != launches or solve.get("calls") != launches or not in_solve:
+        raise AssertionError(f"[profiling] {len(solves)} pf.solve ranges in the trace, "
+                             f"{solve.get('calls')} spans, {launches} launches, "
+                             f"{in_solve} launches inside a pf.solve range")
     busy_ms = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
     say("profiling", trace_mb=os.path.getsize(prof.trace_path) / 1e6,
         nr_small_kernel_events=len(kernel), nr_small_launches=launches,
         nr_small_device_ms=sum(e.get("dur", 0) for e in kernel) / 1e3,
         kernel_events=sum(e.get("cat") == "kernel" for e in events),
-        kernel_busy_ms=busy_ms, phases=timer.summary(), card=smi)
+        kernel_busy_ms=busy_ms, phases=timer.summary(), pf_solve_ranges=len(solves),
+        launches_in_pf_solve=in_solve, pf_solve_host_ms=1e3 * solve["host_s"] / solve["calls"],
+        pf_solve_stream_ms=1e3 * solve["stream_s"] / solve["calls"], card=smi)
 
 
 # [traditional]: the card (float32) against the CPU (float64) on the same

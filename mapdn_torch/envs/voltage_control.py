@@ -38,7 +38,7 @@ import torch
 from mapdn_torch.envs.barriers import get_barrier
 from mapdn_torch.envs.timeseries import TimeSeries
 from mapdn_torch.pf.fused_nr import make_solver
-from mapdn_torch.utils import lanes
+from mapdn_torch.utils import lanes, profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,7 +249,11 @@ class VoltageControlEnv:
             vm0[:, 0] = g.slack_vm
         if va0 is None:
             va0 = torch.zeros_like(p)
-        return self._solver(p, q, vm0, va0)
+        with profiling.span("pf.solve"):
+            res = self._solver(p, q, vm0, va0)
+        profiling.count("pf.lane_solves", p.shape[0])
+        profiling.count("pf.nr_iters", res.n_iter)
+        return res
 
     def clip_reactive_power(self, actions, pv_p):
         """q = a sqrt(s_max^2 - p^2), guarded against noise pushing p above
@@ -271,44 +275,45 @@ class VoltageControlEnv:
     def _attempt_reset(self, t0, add_noise, generator=None, vm0=None,
                        va0=None, noise=None, a0=None):
         """One reset attempt for every lane (one batched solve)."""
-        t = torch.as_tensor(t0, device=self.device).long() + self.cfg.history
-        pv, lp, lq = self._noisy_data_at(t, add_noise, generator, noise)
-        n_lanes, n_sgen = pv.shape
-        if self.cfg.reset_action:
-            if a0 is None:
-                a0 = lanes.draw(lambda s: torch.rand(
-                    s, generator=generator, dtype=self.dtype, device=self.device),
-                    (n_lanes, n_sgen))
-                a0 = a0 * (self.action_high - self.action_low) + self.action_low
+        with profiling.span("env.reset"):
+            t = torch.as_tensor(t0, device=self.device).long() + self.cfg.history
+            pv, lp, lq = self._noisy_data_at(t, add_noise, generator, noise)
+            n_lanes, n_sgen = pv.shape
+            if self.cfg.reset_action:
+                if a0 is None:
+                    a0 = lanes.draw(lambda s: torch.rand(
+                        s, generator=generator, dtype=self.dtype, device=self.device),
+                        (n_lanes, n_sgen))
+                    a0 = a0 * (self.action_high - self.action_low) + self.action_low
+                else:
+                    a0 = lanes.given(a0)
+                q0 = self.clip_reactive_power(
+                    torch.as_tensor(a0, device=self.device).to(self.dtype), pv)
             else:
-                a0 = lanes.given(a0)
-            q0 = self.clip_reactive_power(
-                torch.as_tensor(a0, device=self.device).to(self.dtype), pv)
-        else:
-            q0 = torch.zeros_like(pv)
-        res = self._solve(lp, lq, pv, q0, vm0=vm0, va0=va0)
-        ok = res.converged
-        # a failed solve must not leak NaNs into observations: fall back to a
-        # flat profile (the caller retries on the converged flag)
+                q0 = torch.zeros_like(pv)
+            res = self._solve(lp, lq, pv, q0, vm0=vm0, va0=va0)
+            ok = res.converged
+            # a failed solve must not leak NaNs into observations: fall back to a
+            # flat profile (the caller retries on the converged flag)
 
-        def fin(x, fb):
-            return _lane_where(ok, torch.where(torch.isfinite(x), x, fb), fb)
+            def fin(x, fb):
+                return _lane_where(ok, torch.where(torch.isfinite(x), x, fb), fb)
 
-        state = EnvState(
-            t=t, step=torch.ones_like(t),
-            load_p=lp, load_q=lq, pv_p=pv, sgen_q=q0,
-            vm=fin(res.vm, torch.ones_like(res.vm)),
-            va=fin(res.va, torch.zeros_like(res.va)),
-            p_bus=fin(res.p_bus, torch.zeros_like(res.p_bus)),
-            q_bus=fin(res.q_bus, torch.zeros_like(res.q_bus)),
-            pl_mw=fin(res.pl_mw, torch.zeros_like(res.pl_mw)),
-            solved_pv_p=pv,
-            sum_rewards=torch.zeros(n_lanes, dtype=self.dtype, device=self.device),
-            terminated=torch.zeros(n_lanes, dtype=torch.bool, device=self.device),
-            obs_hist=torch.zeros(
-                (n_lanes, max(self.cfg.history - 1, 0), self.n_agents,
-                 self.obs_base_size), dtype=self.dtype, device=self.device))
-        return state, ok
+            state = EnvState(
+                t=t, step=torch.ones_like(t),
+                load_p=lp, load_q=lq, pv_p=pv, sgen_q=q0,
+                vm=fin(res.vm, torch.ones_like(res.vm)),
+                va=fin(res.va, torch.zeros_like(res.va)),
+                p_bus=fin(res.p_bus, torch.zeros_like(res.p_bus)),
+                q_bus=fin(res.q_bus, torch.zeros_like(res.q_bus)),
+                pl_mw=fin(res.pl_mw, torch.zeros_like(res.pl_mw)),
+                solved_pv_p=pv,
+                sum_rewards=torch.zeros(n_lanes, dtype=self.dtype, device=self.device),
+                terminated=torch.zeros(n_lanes, dtype=torch.bool, device=self.device),
+                obs_hist=torch.zeros(
+                    (n_lanes, max(self.cfg.history - 1, 0), self.n_agents,
+                     self.obs_base_size), dtype=self.dtype, device=self.device))
+            return state, ok
 
     def reset(self, n_lanes, generator=None, draws: Optional[dict] = None):
         """Random-window reset with bounded solvability retry
@@ -372,49 +377,51 @@ class VoltageControlEnv:
     def step(self, state: EnvState, sgen_actions, generator=None,
              add_noise=True, noise=None) -> StepOutput:
         """One transition of every lane; ``sgen_actions`` (L, n_sgen)."""
-        cfg = self.cfg
-        sgen_actions = torch.as_tensor(sgen_actions, device=self.device).to(self.dtype)
-        q_cmd = self.clip_reactive_power(sgen_actions, state.pv_p)
-        # warm start from the previous solved operating point
-        res = self._solve(state.load_p, state.load_q, state.pv_p, q_cmd,
-                          vm0=state.vm, va0=state.va)
-        ok = res.converged
+        with profiling.span("env.step"):
+            cfg = self.cfg
+            sgen_actions = torch.as_tensor(sgen_actions, device=self.device).to(self.dtype)
+            q_cmd = self.clip_reactive_power(sgen_actions, state.pv_p)
+            # warm start from the previous solved operating point
+            res = self._solve(state.load_p, state.load_q, state.pv_p, q_cmd,
+                              vm0=state.vm, va0=state.va)
+            ok = res.converged
 
-        # masked rollback on divergence (voltage_control_env.py:183-196)
-        sel = lambda a, b: _lane_where(ok, a, b)
-        vm = sel(res.vm, state.vm)
-        va = sel(res.va, state.va)
-        p_bus = sel(res.p_bus, state.p_bus)
-        q_bus = sel(res.q_bus, state.q_bus)
-        pl = sel(res.pl_mw, state.pl_mw)
-        sgen_q = sel(q_cmd, state.sgen_q)
-        solved_pv = sel(state.pv_p, state.solved_pv_p)
+            # masked rollback on divergence (voltage_control_env.py:183-196)
+            sel = lambda a, b: _lane_where(ok, a, b)
+            vm = sel(res.vm, state.vm)
+            va = sel(res.va, state.va)
+            p_bus = sel(res.p_bus, state.p_bus)
+            q_bus = sel(res.q_bus, state.q_bus)
+            pl = sel(res.pl_mw, state.pl_mw)
+            sgen_q = sel(q_cmd, state.sgen_q)
+            solved_pv = sel(state.pv_p, state.solved_pv_p)
 
-        reward, info = self._calc_reward(vm, pl, sgen_q)
-        attempted_q_loss = torch.mean(torch.abs(q_cmd), dim=-1)
-        reward = torch.where(ok, reward, reward - cfg.destroy_penalty)
-        zero = torch.zeros_like(reward)
-        info["destroy"] = torch.where(ok, zero, zero + 1.0)
-        info["totally_controllable_ratio"] = torch.where(
-            ok, info["totally_controllable_ratio"], zero)
-        info["q_loss"] = torch.where(ok, info["q_loss"], attempted_q_loss)
+            reward, info = self._calc_reward(vm, pl, sgen_q)
+            attempted_q_loss = torch.mean(torch.abs(q_cmd), dim=-1)
+            reward = torch.where(ok, reward, reward - cfg.destroy_penalty)
+            zero = torch.zeros_like(reward)
+            info["destroy"] = torch.where(ok, zero, zero + 1.0)
+            info["totally_controllable_ratio"] = torch.where(
+                ok, info["totally_controllable_ratio"], zero)
+            info["q_loss"] = torch.where(ok, info["q_loss"], attempted_q_loss)
 
-        t_next = state.t + 1
-        pv, lp, lq = self._noisy_data_at(t_next, add_noise, generator, noise)
-        step = state.step + 1
-        # an incoming terminated flag (failed reset attempt) propagates so the
-        # auto-reset path re-resets the lane on its next step
-        terminated = state.terminated | (step >= cfg.episode_limit) | ~ok
+            t_next = state.t + 1
+            pv, lp, lq = self._noisy_data_at(t_next, add_noise, generator, noise)
+            step = state.step + 1
+            # an incoming terminated flag (failed reset attempt) propagates so the
+            # auto-reset path re-resets the lane on its next step
+            terminated = state.terminated | (step >= cfg.episode_limit) | ~ok
+            profiling.count("env.terminated_lanes", terminated)
 
-        new_state = state.replace(
-            t=t_next, step=step, load_p=lp, load_q=lq, pv_p=pv,
-            sgen_q=sgen_q, vm=vm, va=va, p_bus=p_bus, q_bus=q_bus,
-            pl_mw=pl, solved_pv_p=solved_pv,
-            sum_rewards=state.sum_rewards + reward, terminated=terminated)
-        obs, new_state = self._obs_and_push_hist(new_state)
-        return StepOutput(state=new_state, obs=obs,
-                          global_state=self.get_state(new_state),
-                          reward=reward, terminated=terminated, info=info)
+            new_state = state.replace(
+                t=t_next, step=step, load_p=lp, load_q=lq, pv_p=pv,
+                sgen_q=sgen_q, vm=vm, va=va, p_bus=p_bus, q_bus=q_bus,
+                pl_mw=pl, solved_pv_p=solved_pv,
+                sum_rewards=state.sum_rewards + reward, terminated=terminated)
+            obs, new_state = self._obs_and_push_hist(new_state)
+            return StepOutput(state=new_state, obs=obs,
+                              global_state=self.get_state(new_state),
+                              reward=reward, terminated=terminated, info=info)
 
     # ------------------------------------------------------------ reward/info
     def _calc_reward(self, vm, pl_mw, sgen_q):

@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from mapdn_torch.algos.base import Transition
+from mapdn_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -72,9 +73,11 @@ def _lane_choice(n_env, lanes, generator, device):
 
 
 def window_start(state: ReplayState, batch_size: int, generator=None) -> int:
-    """A window start, uniform over the filled region (oldest first)."""
-    return int(torch.randint(0, max(state.size - batch_size, 0) + 1, (),
-                             generator=generator, device=state.data.reward.device))
+    """A window start, uniform over the filled region (oldest first); a
+    host read."""
+    with profiling.span("host.sync"):
+        return int(torch.randint(0, max(state.size - batch_size, 0) + 1, (),
+                                 generator=generator, device=state.data.reward.device))
 
 
 def sample_window(state: ReplayState, batch_size: int, lanes: int | None = None,

@@ -22,6 +22,8 @@ from typing import Dict
 
 import torch
 
+from mapdn_torch.utils import profiling
+
 
 class PGTester:
     # record key -> EnvState field
@@ -37,10 +39,11 @@ class PGTester:
         self.avail = env.avail_actions
 
     def _act(self, obs, hid):
-        _, action_pol, _, _, hid = self.model.get_actions(
-            self.algo.policy, obs, hid, status="test", exploration=False,
-            avail=self.avail)
-        return self.env.translate_actions(action_pol), hid
+        with profiling.span("eval.act"):
+            _, action_pol, _, _, hid = self.model.get_actions(
+                self.algo.policy, obs, hid, status="test", exploration=False,
+                avail=self.avail)
+            return self.env.translate_actions(action_pol), hid
 
     @torch.no_grad()
     def run(self, day, hour, quarter, a0=None) -> Dict[str, list]:
@@ -52,14 +55,18 @@ class PGTester:
         hid = self.model.init_hidden(1, obs.dtype)
         snaps = [state]
         for _ in range(self.cfg.max_steps):
-            actions, hid = self._act(obs, hid)
-            out = env.step(state, actions, add_noise=False)
-            state, obs = out.state, out.obs
-            snaps.append(state)
-            if bool(out.terminated[0]):
+            with profiling.span("eval.step"):
+                actions, hid = self._act(obs, hid)
+                out = env.step(state, actions, add_noise=False)
+                state, obs = out.state, out.obs
+                snaps.append(state)
+                with profiling.span("host.sync"):
+                    done = bool(out.terminated[0])
+            if done:
                 break
-        return {k: list(torch.stack([getattr(s, f)[0] for s in snaps]).cpu().numpy())
-                for k, f in self._SNAP_FIELDS.items()}
+        with profiling.span("host.sync"):
+            return {k: list(torch.stack([getattr(s, f)[0] for s in snaps]).cpu().numpy())
+                    for k, f in self._SNAP_FIELDS.items()}
 
     @torch.no_grad()
     def run_days(self, days, hour=23, quarter=2, a0=None) -> Dict[str, list]:
@@ -75,16 +82,18 @@ class PGTester:
         n_alive = torch.zeros_like(alive)
         sums = collections.defaultdict(lambda: torch.zeros_like(alive))
         for _ in range(self.cfg.max_steps):
-            actions, hid = self._act(obs, hid)
-            out = env.step(state, actions, add_noise=False)
-            for k, v in out.info.items():
-                sums[k] += v * alive
-            sums["reward"] += out.reward * alive
-            n_alive += alive
-            alive = alive * (1.0 - out.terminated.to(alive.dtype))
-            state, obs = out.state, out.obs
+            with profiling.span("eval.step"):
+                actions, hid = self._act(obs, hid)
+                out = env.step(state, actions, add_noise=False)
+                for k, v in out.info.items():
+                    sums[k] += v * alive
+                sums["reward"] += out.reward * alive
+                n_alive += alive
+                alive = alive * (1.0 - out.terminated.to(alive.dtype))
+                state, obs = out.state, out.obs
         ep_len = torch.clamp(n_alive, min=1.0)
-        result = {k: [float(x) for x in (v / ep_len).cpu()] for k, v in sums.items()}
+        with profiling.span("host.sync"):
+            result = {k: [float(x) for x in (v / ep_len).cpu()] for k, v in sums.items()}
         result["days"] = [int(d) for d in days]
         return result
 
@@ -105,18 +114,20 @@ class PGTester:
         s1 = collections.defaultdict(lambda: torch.zeros_like(count))
         s2 = collections.defaultdict(lambda: torch.zeros_like(count))
         for _ in range(self.cfg.max_steps):
-            actions, hid = self._act(obs, hid)
-            out = env.step(state, actions, add_noise=False)
-            for k, v in out.info.items():
-                s1[k] += torch.sum(v * alive)
-                s2[k] += torch.sum(v * v * alive)
-            count += torch.sum(alive)
-            alive = alive * (1.0 - out.terminated.to(alive.dtype))
-            state, obs = out.state, out.obs
+            with profiling.span("eval.step"):
+                actions, hid = self._act(obs, hid)
+                out = env.step(state, actions, add_noise=False)
+                for k, v in out.info.items():
+                    s1[k] += torch.sum(v * alive)
+                    s2[k] += torch.sum(v * v * alive)
+                count += torch.sum(alive)
+                alive = alive * (1.0 - out.terminated.to(alive.dtype))
+                state, obs = out.state, out.obs
         count = torch.clamp(count, min=1.0)
         result = {}
-        for k in s1:
-            mean = s1[k] / count
-            var = torch.clamp(s2[k] / count - mean * mean, min=0.0)
-            result["mean_test_" + k] = (float(mean), float(2.0 * torch.sqrt(var)))
+        with profiling.span("host.sync"):
+            for k in s1:
+                mean = s1[k] / count
+                var = torch.clamp(s2[k] / count - mean * mean, min=0.0)
+                result["mean_test_" + k] = (float(mean), float(2.0 * torch.sqrt(var)))
         return result

@@ -55,6 +55,7 @@ from mapdn_torch.algos.base import AlgoState, Transition, soft_update
 from mapdn_torch.envs.voltage_control import EnvState
 from mapdn_torch.learn import replay as rb
 from mapdn_torch.learn.sampling import global_norm, normal_entropy
+from mapdn_torch.utils import profiling
 from mapdn_torch.utils.device import resolve_device
 
 _UPDATE_KEYS = {
@@ -198,16 +199,17 @@ class PGTrainer:
     def _rollout_step(self, carry: TrainerCarry, draws=None):
         """One vectorized env step: act, step every lane (auto-reset), and
         emit the transition and the step's stats."""
-        with torch.no_grad(), self._lane_context():
+        with torch.no_grad(), self._lane_context(), profiling.span("train.rollout_step"):
             return self._rollout_step_body(carry, draws or {})
 
     def _rollout_step_body(self, carry, draws):
         model = self.model
         gen = carry.generator
-        _, action_pol, log_prob, _, hid = model.get_actions(
-            carry.algo.policy, carry.obs, carry.last_hid, status="train",
-            exploration=True, avail=self.avail, generator=gen,
-            noise=draws.get("action_noise"))
+        with profiling.span("train.policy"):
+            _, action_pol, log_prob, _, hid = model.get_actions(
+                carry.algo.policy, carry.obs, carry.last_hid, status="train",
+                exploration=True, avail=self.avail, generator=gen,
+                noise=draws.get("action_noise"))
         env_actions = self.env.translate_actions(action_pol)
         out = self.env.batched_auto_reset_step(
             carry.env_state, env_actions, gen, draws=draws.get("env"))
@@ -251,11 +253,16 @@ class PGTrainer:
         subsampling = cfg.update_lanes is not None and cfg.update_lanes < cfg.n_envs
         fixed = (not cfg.episodic and replay.capacity == cfg.batch_size
                  and not subsampling)
-        fixed_batch = self._sample_batch(replay, generator, which, 0, draws) if fixed else None
+
+        def sample(e):
+            with profiling.span("update.sample"):
+                return self._sample_batch(replay, generator, which, e, draws)
+
+        fixed_batch = sample(0) if fixed else None
         epoch_draws = lambda key, e: None if draws.get(key) is None else draws[key][e]
         stats = []
         for e in range(epochs):
-            batch, shard = fixed_batch or self._sample_batch(replay, generator, which, e, draws)
+            batch, shard = fixed_batch or sample(e)
             with shard.active() if shard is not None else contextlib.nullcontext():
                 stats.append(self._update_step(
                     algo, batch.map(self._upcast), which, shard, generator,
@@ -287,13 +294,15 @@ class PGTrainer:
         if which in ("value", "mixer"):
             # the mixer epochs descend the same value loss, with respect
             # to the mixer's parameters (mapdn_tpu/learn/trainer.py:341-353)
-            _, loss, _ = model.get_loss(algo, batch, self.avail, policy=False, **loss_kw)
+            with profiling.span("update.loss"):
+                _, loss, _ = model.get_loss(algo, batch, self.avail, policy=False, **loss_kw)
             loss = share(loss)
             params = list(getattr(algo, which).parameters())
             logged = {f"mean_train_{which}_loss": loss.detach()}
         else:
-            pl, _, (means, log_stds) = model.get_loss(
-                algo, batch, self.avail, value=False, **loss_kw)
+            with profiling.span("update.loss"):
+                pl, _, (means, log_stds) = model.get_loss(
+                    algo, batch, self.avail, value=False, **loss_kw)
             ent = share(normal_entropy(means, log_stds))
             loss = share(pl)
             if cfg.entr > 0:
@@ -301,13 +310,15 @@ class PGTrainer:
             params = list(algo.policy.parameters())
             logged = {"mean_train_policy_loss": loss.detach(),
                       "mean_train_entropy": ent.detach()}
-        grads = list(_grads(loss, params))
+        with profiling.span("update.backward"):
+            grads = list(_grads(loss, params))
         if shard is not None:
             summed = self._sum_over_ranks(grads + list(logged.values()))
             grads = summed[:len(params)]
             logged = dict(zip(logged, summed[len(params):]))
-        gn = global_norm(grads)
-        getattr(model, which + "_tx").step(params, grads, getattr(algo, which + "_opt"))
+        with profiling.span("update.optimizer"):
+            gn = global_norm(grads)
+            getattr(model, which + "_tx").step(params, grads, getattr(algo, which + "_opt"))
         out = {f"mean_train_{which}_loss": logged.pop(f"mean_train_{which}_loss"),
                f"mean_train_{which}_grad_norm": gn}
         out.update(logged)
@@ -322,15 +333,16 @@ class PGTrainer:
         raise NotImplementedError("only a sharded trainer sums over ranks")
 
     def _update_phase(self, algo, replay, generator, draws=None):
-        cfg = self.cfg
-        draws = draws or {}
-        stats = self._update_epochs(algo, replay, generator, which="value",
-                                    epochs=cfg.value_update_epochs, draws=draws)
-        stats.update(self._update_epochs(algo, replay, generator, which="policy",
-                                         epochs=cfg.policy_update_epochs, draws=draws))
-        stats.update(self._update_epochs(algo, replay, generator, which="mixer",
-                                         epochs=self._mixer_epochs(), draws=draws))
-        return stats
+        with profiling.span("train.update"):
+            cfg = self.cfg
+            draws = draws or {}
+            stats = self._update_epochs(algo, replay, generator, which="value",
+                                        epochs=cfg.value_update_epochs, draws=draws)
+            stats.update(self._update_epochs(algo, replay, generator, which="policy",
+                                             epochs=cfg.policy_update_epochs, draws=draws))
+            stats.update(self._update_epochs(algo, replay, generator, which="mixer",
+                                             epochs=self._mixer_epochs(), draws=draws))
+            return stats
 
     def _mixer_epochs(self):
         return (self.cfg.mixer_update_epochs or 0) if self.model.uses_mixer else 0
@@ -348,25 +360,27 @@ class PGTrainer:
         """value[t] = V(state[t]) and next_value[t] = value[t+1] over the
         ring in one critic forward (+ one on the live obs for the newest
         row's bootstrap), in place."""
-        replay = carry.replay
-        data = replay.data
-        values = self._rollout_values_all(carry.algo, self._upcast(data.state))
-        v_last = self._rollout_value(carry.algo, carry.obs)
-        cap = values.shape[0]
-        next_values = torch.roll(values, -1, 0)
-        next_values[(replay.ptr - 1) % cap] = v_last
-        data.value.copy_(values)
-        data.next_value.copy_(next_values)
+        with profiling.span("train.value_fill"):
+            replay = carry.replay
+            data = replay.data
+            values = self._rollout_values_all(carry.algo, self._upcast(data.state))
+            v_last = self._rollout_value(carry.algo, carry.obs)
+            cap = values.shape[0]
+            next_values = torch.roll(values, -1, 0)
+            next_values[(replay.ptr - 1) % cap] = v_last
+            data.value.copy_(values)
+            data.next_value.copy_(next_values)
 
     @torch.no_grad()
     def _fill_episode_values(self, carry: TrainerCarry, slot):
         """value[t] = V(state[t]) over the stored episode in one critic
         forward, next_value[t] = value[t+1] and V of the live obs after the
         last step (mapdn_tpu/learn/trainer.py:436-445), in place."""
-        values = self._rollout_values_all(carry.algo, self._upcast(slot.state))
-        slot.value.copy_(values)
-        slot.next_value[:-1].copy_(values[1:])
-        slot.next_value[-1].copy_(self._rollout_value(carry.algo, carry.obs))
+        with profiling.span("train.value_fill"):
+            values = self._rollout_values_all(carry.algo, self._upcast(slot.state))
+            slot.value.copy_(values)
+            slot.next_value[:-1].copy_(values[1:])
+            slot.next_value[-1].copy_(self._rollout_value(carry.algo, carry.obs))
 
     def _collect_episode(self, carry: TrainerCarry, step_draws):
         """Episodic mode's chunk: a whole episode, each step written straight
@@ -378,7 +392,8 @@ class PGTrainer:
         for t in range(self._chunk_len):
             carry, trans, stats = self._rollout_step(carry, step_draws[t])
             roll_stats.append(stats)
-            slot.map(lambda buf, x: buf[t].copy_(x), trans)
+            with profiling.span("train.ring_write"):
+                slot.map(lambda buf, x: buf[t].copy_(x), trans)
         if self.model.stores_rollout_value:
             self._fill_episode_values(carry, slot)
         carry.replay = rb.add_episode(carry.replay)
@@ -397,42 +412,45 @@ class PGTrainer:
         """``chunk_len`` rollout steps, the ring write, the value fill, the
         update phase and the on-policy clear; in episodic mode the episode's
         collection alone.  Returns (carry, stats)."""
-        cfg = self.cfg
-        draws = draws or {}
-        step_draws = draws.get("steps") or [None] * self._chunk_len
-        if cfg.episodic:
-            return self._collect_episode(carry, step_draws)
-        tail = collections.deque(maxlen=carry.replay.capacity)
-        roll_stats = []
-        for t in range(self._chunk_len):
-            carry, trans, stats = self._rollout_step(carry, step_draws[t])
-            roll_stats.append(stats)
+        with profiling.span("train.chunk"):
+            cfg = self.cfg
+            draws = draws or {}
+            step_draws = draws.get("steps") or [None] * self._chunk_len
+            if cfg.episodic:
+                return self._collect_episode(carry, step_draws)
+            tail = collections.deque(maxlen=carry.replay.capacity)
+            roll_stats = []
+            for t in range(self._chunk_len):
+                carry, trans, stats = self._rollout_step(carry, step_draws[t])
+                roll_stats.append(stats)
+                if self._stack_emit:
+                    tail.append(trans)
+                else:
+                    with profiling.span("train.ring_write"):
+                        carry.replay = rb.add(carry.replay, trans)
             if self._stack_emit:
-                tail.append(trans)
-            else:
-                carry.replay = rb.add(carry.replay, trans)
-        if self._stack_emit:
-            stacked = tail[0].map(lambda *xs: torch.stack(xs), *list(tail)[1:])
-            carry.replay = rb.add_many(carry.replay, stacked)
-        stats = self._rollout_stats(roll_stats)
-        if self.model.stores_rollout_value:
-            self._fill_ring_values(carry)
+                with profiling.span("train.ring_write"):
+                    stacked = tail[0].map(lambda *xs: torch.stack(xs), *list(tail)[1:])
+                    carry.replay = rb.add_many(carry.replay, stacked)
+            stats = self._rollout_stats(roll_stats)
+            if self.model.stores_rollout_value:
+                self._fill_ring_values(carry)
 
-        ready = (carry.replay.size >= cfg.batch_size
-                 and carry.steps > cfg.replay_warmup)
-        if ready:
-            stats.update(self._update_phase(carry.algo, carry.replay,
-                                            carry.generator, draws))
-            if self.model.on_policy:
-                carry.replay = rb.clear(carry.replay)
-        else:
-            # zero stats under the keys the update phase would give
-            epochs = {"value": cfg.value_update_epochs,
-                      "policy": cfg.policy_update_epochs, "mixer": self._mixer_epochs()}
-            for which, keys in _UPDATE_KEYS.items():
-                for k in (keys if epochs[which] > 0 else ()):
-                    stats[k] = torch.zeros((), device=self.device)
-        return carry, stats
+            ready = (carry.replay.size >= cfg.batch_size
+                     and carry.steps > cfg.replay_warmup)
+            if ready:
+                stats.update(self._update_phase(carry.algo, carry.replay,
+                                                carry.generator, draws))
+                if self.model.on_policy:
+                    carry.replay = rb.clear(carry.replay)
+            else:
+                # zero stats under the keys the update phase would give
+                epochs = {"value": cfg.value_update_epochs,
+                          "policy": cfg.policy_update_epochs, "mixer": self._mixer_epochs()}
+                for which, keys in _UPDATE_KEYS.items():
+                    for k in (keys if epochs[which] > 0 else ()):
+                        stats[k] = torch.zeros((), device=self.device)
+            return carry, stats
 
     def _train_episode(self, carry: TrainerCarry, draws=None):
         """``_chunks_per_episode`` chunks with a soft target update after
@@ -501,12 +519,14 @@ class PGTrainer:
                 stats.update(upd)
             if cfg.target and self.episodes % cfg.target_update_freq == 0:
                 self._soft_update(self.carry.algo)
-        return {k: float(v) for k, v in stats.items()}
+        with profiling.span("host.sync"):
+            return {k: float(v) for k, v in stats.items()}
 
     def evaluate(self) -> Dict[str, float]:
         """Greedy eval episodes drawn from the carry's generator."""
         stats = self._eval_rollout(self.carry.algo, self.carry.generator)
-        return {k: float(v) for k, v in stats.items()}
+        with profiling.span("host.sync"):
+            return {k: float(v) for k, v in stats.items()}
 
     def setup(self, seed=0):
         self.carry = self.init_carry(seed)

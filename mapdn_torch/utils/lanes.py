@@ -26,6 +26,8 @@ import contextvars
 import torch
 import torch.distributed as dist
 
+from mapdn_torch.utils import profiling
+
 _ACTIVE = contextvars.ContextVar("mapdn_torch_lane_shard", default=None)
 
 
@@ -112,13 +114,14 @@ def given(x, axis=0):
 def any_lane(flag):
     """Whether ``flag`` (a bool tensor over this rank's lanes) holds
     anywhere, over every rank under a shard; a host read."""
-    local = flag.any()
-    shard = _ACTIVE.get()
-    if shard is None:
-        return bool(local)
-    t = local.to(torch.int32).reshape(1)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=shard.group)
-    return bool(t)
+    with profiling.span("host.sync"):
+        local = flag.any()
+        shard = _ACTIVE.get()
+        if shard is None:
+            return bool(local)
+        t = local.to(torch.int32).reshape(1)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=shard.group)
+        return bool(t)
 
 
 def all_lanes(flag):

@@ -373,8 +373,8 @@ def test_cli_runs_on_the_gpu_unless_asked(tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Every module of mapdn_torch, and chip_smoke.py, profile_torch.py and
-    bench_torch.py, import in a process where importing jax or mapdn_tpu
+    """Every module of mapdn_torch, and chip_smoke.py and bench_torch.py,
+    import in a process where importing jax or mapdn_tpu
     fails, and so does importing matplotlib, PIL or pandas: the port
     imports those where it uses them."""
     code = (
@@ -383,7 +383,7 @@ def test_port_imports_no_jax():
         "sys.modules['matplotlib'] = sys.modules['PIL'] = sys.modules['pandas'] = None\n"
         "import mapdn_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(mapdn_torch.__path__, 'mapdn_torch.')]\n"
-        "for name in names + ['chip_smoke', 'profile_torch', 'bench_torch']:\n"
+        "for name in names + ['chip_smoke', 'bench_torch']:\n"
         "    importlib.import_module(name)\n"
         "assert ({'mapdn_torch.algos.sqddpg', 'mapdn_torch.algos.maac',\n"
         "        'mapdn_torch.algos.facmaddpg', 'mapdn_torch.learn.tester',\n"

@@ -1,7 +1,8 @@
 """mapdn_torch.utils.profiling on the CPU: ``PhaseTimer`` (the
 counterpart of tests/test_subsystems.py:99-110), ``device_trace`` writing
-a Chrome trace of a case33 env step, and ``enable_nan_debugging``.
-Imports no JAX."""
+a Chrome trace of a case33 env step that names the program's spans, and
+``enable_nan_debugging``.  Imports no JAX (the tracer on the main path:
+tests/test_torch_tracing.py)."""
 import json
 import os
 
@@ -9,7 +10,8 @@ import pytest
 import torch
 
 from mapdn_torch.envs import EnvConfig, make_env
-from mapdn_torch.utils.profiling import PhaseTimer, device_trace, enable_nan_debugging
+from mapdn_torch.utils.profiling import (PhaseTimer, Tracer, device_trace,
+                                         enable_nan_debugging, tracing)
 
 torch.set_num_threads(1)
 
@@ -30,11 +32,15 @@ def test_phase_timer():
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
     """A traced env step of 4 case33 lanes: the trace file is JSON whose
-    events name the ops that ran (on the CPU: the plain solver's matmuls)."""
+    events name the ops that ran (on the CPU: the plain solver's matmuls).
+    Under an active tracer it also names the program's spans on the same
+    clock: ``env.step`` around ``pf.solve``, and that around the solver's
+    ops."""
     env = make_env("case33", EnvConfig(), days=2, dtype=torch.float32, device="cpu")
     state, _, _ = env.reset(4, torch.Generator().manual_seed(0))
     log_dir = str(tmp_path / "trace")
-    with device_trace(log_dir) as prof:
+    tracer = Tracer()
+    with tracing(tracer), device_trace(log_dir) as prof:
         env.step(state, torch.zeros((4, env.grid.n_sgen)), torch.Generator().manual_seed(1))
     assert prof.trace_path == os.path.join(log_dir, "trace.json")
     with open(prof.trace_path) as fh:
@@ -42,6 +48,17 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     names = {e.get("name", "") for e in events}
     assert any("matmul" in n or "mm" in n for n in names), sorted(names)[:20]
     assert any(k.key.startswith("aten::") for k in prof.key_averages())
+
+    ranges = {n: [e for e in events if e.get("name") == n and "dur" in e]
+              for n in ("env.step", "pf.solve")}
+    assert len(ranges["env.step"]) == 1 and len(ranges["pf.solve"]) == 1, sorted(names)[:40]
+    inside = lambda e, outer: (outer["ts"] <= e["ts"]
+                               and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"])
+    step, solve = ranges["env.step"][0], ranges["pf.solve"][0]
+    assert inside(solve, step)
+    ops = [e for e in events if e.get("name", "").startswith("aten::") and "dur" in e]
+    assert any(inside(e, solve) for e in ops)
+    assert set(tracer.summary()["spans"]) == {"env.step", "pf.solve"}
 
 
 def test_enable_nan_debugging_traps_nan_in_backward():
