@@ -136,6 +136,11 @@ class MARLModel:
     # evaluated by the trainer's act=None ring value fill (refused there)
     rollout_value_needs_act = False
     stores_next_hidden = True
+    # whether the rollout step (get_actions and what it calls) reads no host
+    # value that varies from step to step, so that the trainer may capture
+    # the step once as a CUDA graph and replay it (learn/rollout_graph.py);
+    # set only where that was checked
+    rollout_capturable = False
 
     def __init__(self, cfg, device=None, param_dtype=torch.float32):
         if not cfg.continuous:

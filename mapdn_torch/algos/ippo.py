@@ -10,6 +10,7 @@ class IPPO(MARLModel):
     on_policy = True
     stores_rollout_value = True
     stores_next_hidden = False  # the PPO loss never reads Transition.hid
+    rollout_capturable = True
 
     def construct_value_net(self):
         self.value_in_dim = self.obs_dim + self.id_dim()

@@ -11,6 +11,7 @@ class MAPPO(MARLModel):
     on_policy = True
     stores_rollout_value = True
     stores_next_hidden = False  # the PPO loss never reads Transition.hid
+    rollout_capturable = True
 
     def construct_value_net(self):
         # shared: one CentralVCritic over the joint obs; non-shared

@@ -37,7 +37,7 @@ import torch
 
 from mapdn_torch.envs.barriers import get_barrier
 from mapdn_torch.envs.timeseries import TimeSeries
-from mapdn_torch.pf.fused_nr import make_solver
+from mapdn_torch.pf.fused_nr import make_solver, solver_path
 from mapdn_torch.utils import lanes, profiling
 
 
@@ -148,6 +148,15 @@ class VoltageControlEnv:
             grid, backend=cfg.pf_backend, tol=cfg.pf_tol,
             max_iter=cfg.pf_max_iter, inner_iters=cfg.pf_inner_iters,
             fixed_iter=cfg.pf_fixed_iter)
+        # the solver built here, against which a replaced ``_solver`` (a
+        # wrapper, a fault) is told
+        self._built_solver = self._solver
+        # whether a solve reads nothing back to the host, so that a step can
+        # be captured as a CUDA graph: the kernels run their loops on the
+        # card, the torch-op solver reads its early-exit flag every
+        # iteration unless its iterations are fixed
+        self.solver_capturable = (solver_path(grid.n_bus, cfg.pf_backend) != "torch"
+                                  or cfg.pf_fixed_iter is not None)
 
         dev, dt = self.device, self.dtype
         line_mask = grid.is_line.detach().cpu().double().numpy()
@@ -530,20 +539,31 @@ class VoltageControlEnv:
                         noise=draws.get("step_noise"))
         if not always_reset and not lanes.any_lane(out.terminated):
             return out
-        n_lanes = out.reward.shape[0]
+        fresh, state, obs = self._auto_reset(states.vm, states.va, out, generator,
+                                             add_noise, draws)
+        return dataclasses.replace(
+            out, state=state, obs=obs,
+            global_state=_lane_where(out.terminated, self.get_state(fresh),
+                                     out.global_state))
+
+    def _auto_reset(self, vm0, va0, out: StepOutput, generator=None, add_noise=True,
+                    draws: Optional[dict] = None):
+        """The reset branch of :meth:`batched_auto_reset_step`: one reset
+        attempt of every lane, warm-started from ``vm0``/``va0`` (the
+        voltages before the step), taken by the lanes ``out`` terminated.
+        Returns (the fresh state, ``out``'s state and obs with those lanes
+        taken from it)."""
+        draws = draws or {}
+        n_lanes = out.terminated.shape[0]
         t0 = draws.get("t0")
         t0 = self._sample_start(n_lanes, generator) if t0 is None else lanes.given(t0)
         fresh, ok = self._attempt_reset(
-            t0, add_noise, generator, vm0=states.vm, va0=states.va,
+            t0, add_noise, generator, vm0=vm0, va0=va0,
             noise=draws.get("reset_noise"), a0=draws.get("a0"))
         fresh = fresh.replace(terminated=~ok)
         obs_f, fresh = self._obs_and_push_hist(fresh)
         sel = out.terminated
-        return dataclasses.replace(
-            out, state=select_state(sel, fresh, out.state),
-            obs=_lane_where(sel, obs_f, out.obs),
-            global_state=_lane_where(sel, self.get_state(fresh),
-                                     out.global_state))
+        return fresh, select_state(sel, fresh, out.state), _lane_where(sel, obs_f, out.obs)
 
     def auto_reset_step(self, states, sgen_actions, generator=None,
                         add_noise=True, draws=None):

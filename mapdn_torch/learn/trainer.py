@@ -28,6 +28,13 @@ update phase runs on batches of whole single-lane episodes every
 ``behaviour_update_freq`` episodes and the soft target update every
 ``target_update_freq`` episodes, both from :meth:`PGTrainer.run_episode`.
 
+On the card, where nothing asks to see the step, the rollout steps
+replay CUDA graphs of the step (``learn/rollout_graph.py``): one launch a
+step where the eager step launches some hundreds of kernels, with the same
+work, draws and results.  :meth:`PGTrainer._eager_reason` says where
+they run eagerly instead, and :meth:`PGTrainer.rollout_counts` tallies
+captures, replays and eager steps.
+
 Randomness comes from the carry's ``torch.Generator`` on the trainer's
 device.  ``_train_chunk`` also takes the draws explicitly (the parity tests
 replay the JAX package's key splits): ``draws = {"steps": [{"action_noise":
@@ -54,8 +61,9 @@ import torch
 from mapdn_torch.algos.base import AlgoState, Transition, soft_update
 from mapdn_torch.envs.voltage_control import EnvState
 from mapdn_torch.learn import replay as rb
+from mapdn_torch.learn import rollout_graph
 from mapdn_torch.learn.sampling import global_norm, normal_entropy
-from mapdn_torch.utils import profiling
+from mapdn_torch.utils import lanes, profiling
 from mapdn_torch.utils.device import resolve_device
 
 _UPDATE_KEYS = {
@@ -92,6 +100,13 @@ def _mean_stats(stat_list):
 
 
 class PGTrainer:
+    # why a chunk's rollout steps run eagerly, in the order they are tested
+    # (PGTrainer._eager_reason)
+    EAGER_REASONS = ("cpu", "draws", "shard", "tracer", "algorithm", "solver", "wrapped")
+    # the trainer's own methods a rollout step runs through, eagerly or in
+    # a graph: a wrapper installed on one of them must see every step
+    _STEP_METHODS = ("_rollout_step", "_rollout_step_body", "_step_transition")
+
     def __init__(self, cfg, model, env, device=None):
         self.device = resolve_device(device if device is not None else model.device)
         if env.device.type != self.device.type or model.device.type != self.device.type:
@@ -114,6 +129,10 @@ class PGTrainer:
             self._ring_capacity = max(
                 cfg.batch_size, -(-int(cfg.replay_buffer_size) // cfg.n_envs))
             self._stack_emit = self._chunk_len >= self._ring_capacity
+        self._graph = None
+        self._rollout_counts = {"captures": {"step": 0, "reset": 0},
+                                "replays": {"step": 0, "reset": 0},
+                                "eager": dict.fromkeys(self.EAGER_REASONS, 0)}
 
     # ------------------------------------------------------------------ init
     def init_carry(self, seed=0) -> TrainerCarry:
@@ -213,16 +232,25 @@ class PGTrainer:
         env_actions = self.env.translate_actions(action_pol)
         out = self.env.batched_auto_reset_step(
             carry.env_state, env_actions, gen, draws=draws.get("env"))
+        trans, next_hid, stats = self._step_transition(carry.obs, carry.last_hid,
+                                                       action_pol, log_prob, hid, out)
+        carry = dataclasses.replace(carry, env_state=out.state, obs=out.obs,
+                                    last_hid=next_hid, steps=carry.steps + 1)
+        return carry, trans, stats
 
-        value = torch.zeros((self.n_envs, model.n), dtype=carry.obs.dtype,
-                            device=carry.obs.device)
-        done = out.terminated.to(carry.obs.dtype)
+    def _step_transition(self, obs, last_hid, action_pol, log_prob, hid, out):
+        """The step's transition (``next_state`` is ``out``'s obs), the GRU
+        state the next step starts from and the step's stats, from the obs
+        and GRU state the policy read, its outputs and the env's step."""
+        model = self.model
+        value = torch.zeros((self.n_envs, model.n), dtype=obs.dtype, device=obs.device)
+        done = out.terminated.to(obs.dtype)
         trans = Transition(
-            state=carry.obs, action=action_pol, log_prob_a=log_prob,
+            state=obs, action=action_pol, log_prob_a=log_prob,
             value=value, next_value=torch.zeros_like(value),
             reward=out.reward[:, None].expand(self.n_envs, model.n),
             next_state=out.obs, done=done, last_step=done,
-            last_hid=carry.last_hid,
+            last_hid=last_hid,
             hid=hid if model.stores_next_hidden else hid[..., :0])
         if self.cfg.replay_bf16:
             b = torch.bfloat16
@@ -236,9 +264,70 @@ class PGTrainer:
         stats = {"mean_train_reward": out.reward.mean()}
         for k, v in out.info.items():
             stats["mean_train_" + k] = v.mean()
-        carry = dataclasses.replace(carry, env_state=out.state, obs=out.obs,
-                                    last_hid=next_hid, steps=carry.steps + 1)
-        return carry, trans, stats
+        return trans, next_hid, stats
+
+    def _eager_reason(self, carry, step_draws):
+        """Why a chunk's rollout steps run eagerly (one of
+        ``EAGER_REASONS``), or None where they replay the rollout graphs:
+        not on the card; explicit draws (the parity tests' replayed ones);
+        under a lane shard (its gate is an all-reduce); and the reasons of
+        :meth:`_step_eager_reason`."""
+        if not rollout_graph.RolloutGraph.supports(carry.obs.device):
+            return "cpu"
+        if any(d is not None for d in step_draws):
+            return "draws"
+        with self._lane_context():
+            if lanes.current() is not None:
+                return "shard"
+        return self._step_eager_reason(carry)
+
+    def _step_eager_reason(self, carry):
+        """The reasons that are tested again before each replay: an active
+        tracer (whose spans and counters a replay would not see); an
+        algorithm that does not declare its rollout capturable
+        (``rollout_capturable``); an env whose solver reads the host
+        (``VoltageControlEnv.solver_capturable``: the torch-op solver with
+        its early exit); a callable of the step that is not the program's
+        own (:func:`rollout_graph.wrapped`)."""
+        if profiling.active() is not None:
+            return "tracer"
+        if not self.model.rollout_capturable:
+            return "algorithm"
+        if not getattr(self.env, "solver_capturable", False):
+            return "solver"
+        if rollout_graph.wrapped(self, carry.algo.policy):
+            return "wrapped"
+        return None
+
+    def _tally_eager(self, reason):
+        self._rollout_counts["eager"][reason] += 1
+        profiling.count("train.eager_steps", 1)
+
+    def rollout_counts(self):
+        """The rollout steps so far: graph captures and replays (``step``
+        and ``reset``; a capture's step is its warm-up, run eagerly), and
+        the steps that ran eagerly by reason (``EAGER_REASONS``)."""
+        return {k: dict(v) for k, v in self._rollout_counts.items()}
+
+    def _graph_chunk(self, carry):
+        """A chunk's rollout steps through the rollout graphs, (re)built
+        where they do not bind the carry; a step that a tracer or a wrapper
+        appearing inside the chunk keeps eager writes its row as the graph
+        would.  Returns (carry, the rollout stats)."""
+        if self._graph is None or not self._graph.binds(carry):
+            self._graph = None   # the old graphs' memory goes first
+            self._graph = rollout_graph.RolloutGraph(self, carry)
+        graph = self._graph
+        graph.begin_chunk(carry)
+        for t in range(self._chunk_len):
+            reason = self._step_eager_reason(carry)
+            if reason is None:
+                carry = graph.step(carry)
+            else:
+                self._tally_eager(reason)
+                carry, trans, stats = self._rollout_step(carry)
+                graph.write(t, trans, stats)
+        return graph.end_chunk(carry)
 
     # --------------------------------------------------------------- updates
     def _update_epochs(self, algo, replay, generator, *, which, epochs, draws):
@@ -388,16 +477,22 @@ class PGTrainer:
         exists), then its rollout values; the update runs on the episode
         cadence (``_episodic_update``)."""
         slot = rb.episode_slot(carry.replay)
-        roll_stats = []
-        for t in range(self._chunk_len):
-            carry, trans, stats = self._rollout_step(carry, step_draws[t])
-            roll_stats.append(stats)
-            with profiling.span("train.ring_write"):
-                slot.map(lambda buf, x: buf[t].copy_(x), trans)
+        reason = self._eager_reason(carry, step_draws)
+        if reason is None:
+            carry, stats = self._graph_chunk(carry)
+        else:
+            roll_stats = []
+            for t in range(self._chunk_len):
+                self._tally_eager(reason)
+                carry, trans, stats = self._rollout_step(carry, step_draws[t])
+                roll_stats.append(stats)
+                with profiling.span("train.ring_write"):
+                    slot.map(lambda buf, x: buf[t].copy_(x), trans)
+            stats = self._rollout_stats(roll_stats)
         if self.model.stores_rollout_value:
             self._fill_episode_values(carry, slot)
         carry.replay = rb.add_episode(carry.replay)
-        return carry, self._rollout_stats(roll_stats)
+        return carry, stats
 
     def _episodic_update(self, carry: TrainerCarry, draws=None):
         """The update phase on batches of whole episodes, then the
@@ -418,21 +513,11 @@ class PGTrainer:
             step_draws = draws.get("steps") or [None] * self._chunk_len
             if cfg.episodic:
                 return self._collect_episode(carry, step_draws)
-            tail = collections.deque(maxlen=carry.replay.capacity)
-            roll_stats = []
-            for t in range(self._chunk_len):
-                carry, trans, stats = self._rollout_step(carry, step_draws[t])
-                roll_stats.append(stats)
-                if self._stack_emit:
-                    tail.append(trans)
-                else:
-                    with profiling.span("train.ring_write"):
-                        carry.replay = rb.add(carry.replay, trans)
-            if self._stack_emit:
-                with profiling.span("train.ring_write"):
-                    stacked = tail[0].map(lambda *xs: torch.stack(xs), *list(tail)[1:])
-                    carry.replay = rb.add_many(carry.replay, stacked)
-            stats = self._rollout_stats(roll_stats)
+            reason = self._eager_reason(carry, step_draws)
+            if reason is None:
+                carry, stats = self._graph_chunk(carry)
+            else:
+                carry, stats = self._eager_chunk(carry, step_draws, reason)
             if self.model.stores_rollout_value:
                 self._fill_ring_values(carry)
 
@@ -451,6 +536,26 @@ class PGTrainer:
                     for k in (keys if epochs[which] > 0 else ()):
                         stats[k] = torch.zeros((), device=self.device)
             return carry, stats
+
+    def _eager_chunk(self, carry, step_draws, reason):
+        """A chunk's rollout steps run eagerly, for ``reason``, and their
+        ring write; returns (carry, the rollout stats)."""
+        tail = collections.deque(maxlen=carry.replay.capacity)
+        roll_stats = []
+        for t in range(self._chunk_len):
+            self._tally_eager(reason)
+            carry, trans, stats = self._rollout_step(carry, step_draws[t])
+            roll_stats.append(stats)
+            if self._stack_emit:
+                tail.append(trans)
+            else:
+                with profiling.span("train.ring_write"):
+                    carry.replay = rb.add(carry.replay, trans)
+        if self._stack_emit:
+            with profiling.span("train.ring_write"):
+                stacked = tail[0].map(lambda *xs: torch.stack(xs), *list(tail)[1:])
+                carry.replay = rb.add_many(carry.replay, stacked)
+        return carry, self._rollout_stats(roll_stats)
 
     def _train_episode(self, carry: TrainerCarry, draws=None):
         """``_chunks_per_episode`` chunks with a soft target update after

@@ -53,11 +53,18 @@ SPANS = (
     "eval.act",             # PGTester._act; in eval.step
 )
 # every counter: lanes x solves, the solves' Newton iterations summed over
-# their lanes, the lanes each env step terminated
-COUNTERS = ("pf.lane_solves", "pf.nr_iters", "env.terminated_lanes")
+# their lanes, the lanes each env step terminated, the trainer's rollout
+# steps that ran eagerly (all of them while a tracer is active: a step
+# replayed as a CUDA graph calls no Python, so it opens no span)
+COUNTERS = ("pf.lane_solves", "pf.nr_iters", "env.terminated_lanes", "train.eager_steps")
 
 _ACTIVE = None
 _NO_SPAN = contextlib.nullcontext()
+
+
+def active():
+    """The active :class:`Tracer`, or None."""
+    return _ACTIVE
 
 
 def span(name):
