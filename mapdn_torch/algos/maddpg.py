@@ -10,6 +10,11 @@ from mapdn_torch.learn.losses import ddpg_loss
 
 
 class MADDPG(MARLModel):
+    # the rollout runs the base class's get_actions (the policy, the
+    # exploration noise drawn from the generator, the avail mask) and the
+    # env's translate_actions, as MAPPO's does: no host read
+    rollout_capturable = True
+
     def construct_value_net(self):
         self.value_in_dim = (self.obs_dim + self.act_dim) * self.n + self.id_dim()
 

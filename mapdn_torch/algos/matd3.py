@@ -18,6 +18,9 @@ from mapdn_torch.learn.sampling import batchnorm, draw_normal, select_action_con
 
 
 class MATD3(MADDPG):
+    # MADDPG's rollout, declared capturable there, is not yet checked here
+    rollout_capturable = False
+
     def construct_value_net(self):
         self.value_in_dim = (self.obs_dim + self.act_dim) * self.n + 1 + self.id_dim()
 

@@ -18,6 +18,7 @@ import torch
 
 from mapdn_torch.algos.base import flatten_batch
 from mapdn_torch.learn.sampling import batchnorm, policy_log_density
+from mapdn_torch.utils import profiling
 
 
 def gae_advantages(rewards, next_values, values, mask, gamma, lambda_):
@@ -37,7 +38,7 @@ def gae_advantages(rewards, next_values, values, mask, gamma, lambda_):
 def _bootstrap(model, state, b, avail, value_module):
     """V(s', a') of the next policy's actions, no graph (the callers'
     targets are stop-gradient)."""
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("update.target"):
         _, next_actions, _, _, _ = model.get_actions(
             model.next_policy(state), b.next_state, b.hid, status="train",
             exploration=False, avail=avail)

@@ -103,9 +103,10 @@ def sample_window(state: ReplayState, batch_size: int, lanes: int | None = None,
         return state.data.map(lambda buf: torch.roll(buf, -oldest, 0))
     if start is None:
         start = window_start(state, batch_size, generator)
-    idx = (oldest + start + torch.arange(batch_size, device=device)) % cap
-    window = state.data.map(lambda buf: buf[idx])
-    return subsample_lanes(window, lanes, lane_idx=lane_idx) if subsample else window
+    with profiling.span("replay.gather"):
+        idx = (oldest + start + torch.arange(batch_size, device=device)) % cap
+        window = state.data.map(lambda buf: buf[idx])
+        return subsample_lanes(window, lanes, lane_idx=lane_idx) if subsample else window
 
 
 def subsample_lanes(window: Transition, lanes: int | None, generator=None,

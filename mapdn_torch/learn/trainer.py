@@ -437,11 +437,13 @@ class PGTrainer:
         return (self.cfg.mixer_update_epochs or 0) if self.model.uses_mixer else 0
 
     def _soft_update(self, algo: AlgoState):
-        tau = self.cfg.target_lr
-        soft_update(algo.target_policy, algo.policy, tau)
-        soft_update(algo.target_value, algo.value, tau)
-        if algo.mixer is not None:
-            soft_update(algo.target_mixer, algo.mixer, tau)
+        with profiling.span("train.target_update"):
+            tau = self.cfg.target_lr
+            soft_update(algo.target_policy, algo.policy, tau)
+            soft_update(algo.target_value, algo.value, tau)
+            if algo.mixer is not None:
+                soft_update(algo.target_mixer, algo.mixer, tau)
+        profiling.count("train.target_updates", 1)
 
     # ----------------------------------------------------------- train chunk
     @torch.no_grad()

@@ -1,10 +1,11 @@
 """Profiling hooks: the program's spans and counters, ``torch.profiler``
 device traces and phase timers (port of mapdn_tpu/utils/profiling.py).
 
-The trainer, the env, the lane helpers, the replay and the tester mark
-each layer boundary with ``span(name)`` (the names are ``SPANS``) and count
-at the same boundaries with ``count(name, value)`` (``COUNTERS``).  Both do
-nothing beyond one check unless a :class:`Tracer` is active::
+The trainer, the losses, the env, the lane helpers, the replay and the
+tester mark each layer boundary with ``span(name)`` (the names are
+``SPANS``) and count at the same boundaries with ``count(name, value)``
+(``COUNTERS``).  Both do nothing beyond one check unless a :class:`Tracer`
+is active::
 
     tracer = Tracer()
     with tracing(tracer):
@@ -45,6 +46,11 @@ SPANS = (
     "update.loss",          # model.get_loss; in train.update
     "update.backward",      # the gradients; in train.update
     "update.optimizer",     # global_norm and the optimizer step; in train.update
+    "update.target",        # a loss's bootstrap: the next-state policy and the
+                            # (target) critic; in update.loss
+    "train.target_update",  # PGTrainer._soft_update; outside train.chunk
+    "replay.gather",        # the index gather of a sampled window of a ring
+                            # longer than the window; in update.sample
     "env.step",             # VoltageControlEnv.step; in a rollout or eval step
     "env.reset",            # every reset attempt; in its caller's span
     "pf.solve",             # the power-flow solve; in env.step or env.reset
@@ -55,8 +61,10 @@ SPANS = (
 # every counter: lanes x solves, the solves' Newton iterations summed over
 # their lanes, the lanes each env step terminated, the trainer's rollout
 # steps that ran eagerly (all of them while a tracer is active: a step
-# replayed as a CUDA graph calls no Python, so it opens no span)
-COUNTERS = ("pf.lane_solves", "pf.nr_iters", "env.terminated_lanes", "train.eager_steps")
+# replayed as a CUDA graph calls no Python, so it opens no span), the soft
+# target updates
+COUNTERS = ("pf.lane_solves", "pf.nr_iters", "env.terminated_lanes", "train.eager_steps",
+            "train.target_updates")
 
 _ACTIVE = None
 _NO_SPAN = contextlib.nullcontext()

@@ -11,8 +11,9 @@ reads trapped in it for the algorithms that declare their rollout
 capturable.
 
 On a GPU (``cuda``, skipped elsewhere): graphed against eager from one seed,
-bit for bit: case33 MAPPO at 512 lanes in both ring modes, case33 in
-episodic mode, case322 at 64 lanes; and a wrapper installed between chunks
+bit for bit: case33 MAPPO at 512 lanes in both ring modes, case33 MADDPG
+at 512 lanes on a ring that wraps inside a chunk, case33 in episodic mode,
+case322 at 64 lanes; and a wrapper installed between chunks
 sends its steps eager, after which the graph resumes.  This file imports
 neither JAX nor mapdn_tpu:
 
@@ -135,8 +136,10 @@ def _pass_through(fn):
 
 # ----------------------------------------------------------------- the rule
 def test_only_ppo_declares_its_rollout_capturable():
+    """The PPO pair and MADDPG, whose rollout runs the base class's
+    get_actions as MAPPO's does; the other algorithms step eagerly."""
     assert {alg for alg, cls in MODEL_REGISTRY.items() if cls.rollout_capturable} == {
-        "mappo", "ippo"}
+        "mappo", "ippo", "maddpg"}
 
 
 def test_cpu_steps_run_eager_and_are_tallied():
@@ -188,7 +191,8 @@ def test_eager_steps_counter_counts_every_eager_step():
     with profiling.tracing(tracer):
         tr.run_episode()
     counters = tracer.summary()["counters"]
-    assert set(counters) == set(profiling.COUNTERS)
+    # MAPPO's episode crosses no target_update_freq boundary: no soft update
+    assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates"}
     assert counters["train.eager_steps"] == CHUNK == tr.rollout_counts()["eager"]["cpu"]
 
 
@@ -413,17 +417,22 @@ class _NoHostReads:
 
 @pytest.mark.parametrize("alg,ring_steps,episodic,bf16,history", [
     ("mappo", 8, False, False, 1), ("mappo", 16, False, False, 1), ("mappo", 8, False, True, 1),
-    ("mappo", 2, True, False, 1), ("ippo", 8, False, False, 1), ("mappo", 8, False, False, 3)],
+    ("mappo", 2, True, False, 1), ("ippo", 8, False, False, 1), ("mappo", 8, False, False, 3),
+    ("maddpg", 15, False, False, 1)],
     ids=["stacked_ring_write", "per_step_ring_write", "bf16_ring", "episodic", "ippo",
-         "history3"])
+         "history3", "maddpg_ring_wraps"])
 def test_graph_logic_is_bit_identical_to_eager(direct, monkeypatch, alg, ring_steps,
                                                episodic, bf16, history):
     """Three chunks (episodes in episodic mode) through the graph path's
     code, run as each graph's replay would run it, with no host read inside
     it: the stats, the carry, the ring and the generator as the eager
-    path's."""
+    path's.  MADDPG keeps its 15-step ring across the 12-step chunks, so
+    the per-step writes wrap at its end inside the second and third chunks,
+    and a soft target update follows the second."""
     kw = dict(ring_steps=ring_steps, batch_size=2 if episodic else 8, episodic=episodic,
               replay_bf16=bf16, history=history)
+    if alg == "maddpg":
+        kw.update(target_update_freq=2 * CHUNK)
     ref = _build(alg, **kw)
     with profiling.tracing(profiling.Tracer(device="cpu")):
         want = _run(ref, 3)
@@ -496,6 +505,20 @@ def test_graphed_case33_matches_eager(cuda, ring_steps, batch_size):
     assert counts["captures"] == {"step": 1, "reset": 1}
     assert counts["replays"]["step"] == 3 * 20 - 1 and counts["replays"]["reset"] >= 1
     assert sum(counts["eager"].values()) == 0
+
+
+@pytest.mark.cuda
+def test_graphed_maddpg_case33_matches_eager(cuda):
+    """MADDPG's off-policy ring of 45 steps a lane against 20-step chunks:
+    the graph writes a row a step and wraps at the ring's end inside the
+    third chunk; a soft target update follows the second."""
+    tr = _graphed_against_eager(3, alg="maddpg", lanes_=512, chunk=20, episode_limit=25,
+                                ring_steps=45, batch_size=8, target_update_freq=40)
+    counts = tr.rollout_counts()
+    assert tr._graph.mode == "ring" and tr.carry.replay.size == 45
+    assert tr.carry.replay.ptr == 3 * 20 - 45
+    assert counts["captures"] == {"step": 1, "reset": 1}
+    assert counts["replays"]["step"] == 3 * 20 - 1 and sum(counts["eager"].values()) == 0
 
 
 @pytest.mark.cuda

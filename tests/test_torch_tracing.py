@@ -32,22 +32,25 @@ PARENTS = {
     "train.update": {"train.chunk"}, "update.sample": {"train.update"},
     "update.loss": {"train.update"}, "update.backward": {"train.update"},
     "update.optimizer": {"train.update"}, "eval.step": {None}, "eval.act": {"eval.step"},
+    "update.target": {"update.loss"}, "train.target_update": {None},
+    "replay.gather": {"update.sample"},
 }
 
 
-def _build(ring_steps):
-    """A set-up MAPPO trainer on 16 case33 lanes whose episodes end after
-    5 steps; ``ring_steps`` of ring a lane, against 12-step chunks."""
+def _build(ring_steps, alg="mappo", max_steps=CHUNK, **over):
+    """A set-up trainer (MAPPO by default) on 16 case33 lanes whose
+    episodes end after 5 steps; ``ring_steps`` of ring a lane, against
+    12-step chunks."""
     env = make_env("case33", EnvConfig(episode_limit=EPISODE), days=2,
                    dtype=torch.float32, device="cpu")
-    cfg, _ = load_config("mappo", overrides=dict(
+    cfg, _ = load_config(alg, overrides=dict(
         n_envs=L, behaviour_update_freq=CHUNK, batch_size=4,
         replay_buffer_size=L * ring_steps, update_lanes=8, value_update_epochs=2,
-        policy_update_epochs=1, replay_bf16=False, hid_size=16))
+        policy_update_epochs=1, replay_bf16=False, hid_size=16, **over))
     info = env.get_env_info()
     cfg = cfg.replace(agent_num=info["n_agents"], obs_size=info["obs_shape"],
-                      action_dim=info["n_actions"], max_steps=CHUNK)
-    return PGTrainer(cfg, make_model("mappo", cfg, device="cpu"), env).setup(seed=3)
+                      action_dim=info["n_actions"], max_steps=max_steps)
+    return PGTrainer(cfg, make_model(alg, cfg, device="cpu"), env).setup(seed=3)
 
 
 def _tensors(x):
@@ -137,7 +140,8 @@ def test_chunk_traced_is_bit_identical_and_counts_match(monkeypatch, ring_steps)
     _check_tree(tracer)
     out = tracer.summary()
     spans, counters = out["spans"], out["counters"]
-    assert set(counters) == set(profiling.COUNTERS)
+    # a chunk alone fires no soft target update (PGTrainer._train_episode does)
+    assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates"}
     calls = lambda name: spans.get(name, {"calls": 0})["calls"]
     assert calls("train.chunk") == 1
     assert calls("train.rollout_step") == calls("train.policy") == CHUNK
@@ -156,6 +160,34 @@ def test_chunk_traced_is_bit_identical_and_counts_match(monkeypatch, ring_steps)
     for s in spans.values():
         assert s["stream_s"] is None and s["stream_self_s"] is None
         assert 0.0 <= s["host_self_s"] <= s["host_s"] + 1e-12
+
+
+def test_target_and_gather_spans_of_an_off_policy_ring():
+    """MADDPG on a 30-step ring a lane (longer than its 4-step windows),
+    over a 24-step target_update_freq boundary: each value step's bootstrap
+    opens ``update.target`` in ``update.loss``, each epoch's window gather
+    ``replay.gather`` in ``update.sample``, the soft update
+    ``train.target_update`` at the top and counts ``train.target_updates``;
+    an episode run while no tracer is active records nothing."""
+    tr = _build(30, alg="maddpg", max_steps=2 * CHUNK, target_update_freq=2 * CHUNK)
+    assert tr.carry.replay.capacity == 30 > tr.cfg.batch_size
+    tracer = profiling.Tracer()
+    with profiling.tracing(tracer):
+        tr.run_episode()
+    _check_tree(tracer)
+    out = tracer.summary()
+    spans, counters = out["spans"], out["counters"]
+    assert set(counters) == set(profiling.COUNTERS)
+    assert spans["train.chunk"]["calls"] == 2
+    assert spans["update.target"]["calls"] == 2 * tr.cfg.value_update_epochs
+    assert spans["replay.gather"]["calls"] == spans["update.sample"]["calls"] == 2 * 3
+    assert spans["train.target_update"]["calls"] == counters["train.target_updates"] == 1
+
+    idle = profiling.Tracer()
+    tr.run_episode()
+    assert profiling.active() is None
+    assert idle.summary() == {"spans": {}, "counters": {}}
+    assert tracer.summary()["spans"]["train.chunk"]["calls"] == 2
 
 
 def test_tester_day_traced(monkeypatch):
