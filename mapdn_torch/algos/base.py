@@ -141,6 +141,11 @@ class MARLModel:
     # the step once as a CUDA graph and replay it (learn/rollout_graph.py);
     # set only where that was checked
     rollout_capturable = False
+    # whether an update step (the window's gather, get_loss, the gradients
+    # and the optimizer step) draws nothing and reads no host value, so that
+    # the trainer may capture it once as a CUDA graph and replay it for every
+    # epoch (learn/update_graph.py); set only where that was checked
+    update_capturable = False
 
     def __init__(self, cfg, device=None, param_dtype=torch.float32):
         if not cfg.continuous:

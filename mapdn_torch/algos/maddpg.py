@@ -14,6 +14,8 @@ class MADDPG(MARLModel):
     # exploration noise drawn from the generator, the avail mask) and the
     # env's translate_actions, as MAPPO's does: no host read
     rollout_capturable = True
+    # ddpg_loss draws nothing and reads no host value
+    update_capturable = True
 
     def construct_value_net(self):
         self.value_in_dim = (self.obs_dim + self.act_dim) * self.n + self.id_dim()

@@ -12,6 +12,7 @@ class MAPPO(MARLModel):
     stores_rollout_value = True
     stores_next_hidden = False  # the PPO loss never reads Transition.hid
     rollout_capturable = True
+    update_capturable = True   # ppo_loss draws nothing and reads no host value
 
     def construct_value_net(self):
         # shared: one CentralVCritic over the joint obs; non-shared

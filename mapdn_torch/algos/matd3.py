@@ -18,8 +18,10 @@ from mapdn_torch.learn.sampling import batchnorm, draw_normal, select_action_con
 
 
 class MATD3(MADDPG):
-    # MADDPG's rollout, declared capturable there, is not yet checked here
+    # MADDPG's rollout and update step, declared capturable there, are not
+    # yet checked here (its loss draws the target noise)
     rollout_capturable = False
+    update_capturable = False
 
     def construct_value_net(self):
         self.value_in_dim = (self.obs_dim + self.act_dim) * self.n + 1 + self.id_dim()

@@ -7,7 +7,8 @@ Transition mode: the buffer is a :class:`Transition` of ``(capacity, n_env,
 random subset of lanes.  Episodic mode: a pool of ``(capacity, T, n_env,
 ...)`` episode slots, one vectorized episode a slot (reference
 replay_buffer.py:33-58); ``sample_episodes`` draws whole single-lane
-episodes.  The write pointer and fill count are host integers.
+episodes.  The write pointer and fill count are host integers; the draws
+(``window_start``, ``episode_draws``) stay on the device.
 """
 from __future__ import annotations
 
@@ -51,13 +52,14 @@ def add(state: ReplayState, trans: Transition) -> ReplayState:
 
 
 def add_many(state: ReplayState, stacked: Transition) -> ReplayState:
-    """Append T steps of a (T, n_env, ...) stack; when T >= capacity only the
-    newest ``capacity`` rows survive (identical to T sequential adds)."""
+    """Append T steps of a (T, n_env, ...) stack, in place; when T >= capacity
+    only the newest ``capacity`` rows survive (identical to T sequential
+    adds), written over the ring from its first row."""
     cap = state.capacity
     t = stacked.reward.shape[0]
     if t >= cap:
-        tail = stacked.map(lambda x, buf: x[t - cap:].to(buf.dtype), state.data)
-        return ReplayState(data=tail, ptr=0, size=cap)
+        state.data.map(lambda buf, x: buf.copy_(x[t - cap:]), stacked)
+        return ReplayState(data=state.data, ptr=0, size=cap)
     idx = (state.ptr + torch.arange(t)) % cap
 
     def write(buf, x):
@@ -72,35 +74,45 @@ def _lane_choice(n_env, lanes, generator, device):
     return torch.randperm(n_env, generator=generator, device=device)[:lanes]
 
 
-def window_start(state: ReplayState, batch_size: int, generator=None) -> int:
-    """A window start, uniform over the filled region (oldest first); a
-    host read."""
-    with profiling.span("host.sync"):
-        return int(torch.randint(0, max(state.size - batch_size, 0) + 1, (),
-                                 generator=generator, device=state.data.reward.device))
+def window_start(state: ReplayState, batch_size: int, generator=None) -> torch.Tensor:
+    """A window start, uniform over the filled region (oldest first): a new
+    0-d int64 tensor on the ring's device at every call, never read back."""
+    return torch.randint(0, max(state.size - batch_size, 0) + 1, (),
+                         generator=generator, device=state.data.reward.device)
+
+
+def oldest_row(state: ReplayState) -> int:
+    """The ring row that holds the oldest step."""
+    return 0 if state.size < state.capacity else state.ptr
 
 
 def sample_window(state: ReplayState, batch_size: int, lanes: int | None = None,
-                  generator=None, lane_idx=None, start=None) -> Transition:
+                  generator=None, lane_idx=None, start=None, oldest=None) -> Transition:
     """Contiguous window of ``batch_size`` steps, (batch_size, n_env', ...),
     starting uniformly over the filled region in oldest-first order.  The
     caller guarantees size >= batch_size.
 
     ``lanes``: gather a random subset of that many lanes (``lane_idx`` gives
-    it explicitly); ``start`` gives the window start explicitly."""
+    it explicitly); ``start`` gives the window start explicitly; ``oldest``
+    the oldest row (``oldest_row``), a 0-d device tensor where the window
+    is shorter than the ring."""
     cap = state.capacity
     n_env = state.data.reward.shape[1]
     device = state.data.reward.device
-    oldest = 0 if state.size < cap else state.ptr
+    if oldest is None:
+        oldest = oldest_row(state)
     subsample = lanes is not None and lanes < n_env
     if subsample and lane_idx is None:
         lane_idx = _lane_choice(n_env, lanes, generator, device)
     if cap == batch_size:
-        # the window is the whole ring, un-rotated (lanes gathered first)
+        # the window is the whole ring, un-rotated (lanes gathered first);
+        # a ring whose oldest row is its first is the window as it stands
         if subsample:
             lane_idx = torch.as_tensor(lane_idx, device=device).long()
-            return state.data.map(lambda buf: torch.roll(buf[:, lane_idx], -oldest, 0))
-        return state.data.map(lambda buf: torch.roll(buf, -oldest, 0))
+            window = state.data.map(lambda buf: buf[:, lane_idx])
+        else:
+            window = state.data
+        return window if oldest == 0 else window.map(lambda buf: torch.roll(buf, -oldest, 0))
     if start is None:
         start = window_start(state, batch_size, generator)
     with profiling.span("replay.gather"):
@@ -151,6 +163,13 @@ def add_episode(state: ReplayState) -> ReplayState:
     return state.replace(ptr=(state.ptr + 1) % cap, size=min(state.size + 1, cap))
 
 
+def episode_draws(state: ReplayState, batch_size: int, generator=None):
+    """(slots, lanes), ``batch_size`` each: ``sample_episodes``' draws."""
+    kw = dict(generator=generator, device=state.data.reward.device)
+    return (torch.randint(0, max(state.size, 1), (batch_size,), **kw),
+            torch.randint(0, state.data.reward.shape[2], (batch_size,), **kw))
+
+
 def sample_episodes(state: ReplayState, batch_size: int, generator=None,
                     draws=None) -> Transition:
     """``batch_size`` whole episodes -> a (T, batch_size, ...) Transition.
@@ -159,12 +178,9 @@ def sample_episodes(state: ReplayState, batch_size: int, generator=None,
     all lanes (reference replay_buffer.py:46-52 samples its flat list the
     same way): ``slots`` in [0, max(size, 1)), ``lanes`` in [0, n_env), or
     ``draws = (slots, lanes)`` given explicitly."""
-    n_env = state.data.reward.shape[2]
     device = state.data.reward.device
     if draws is None:
-        kw = dict(generator=generator, device=device)
-        draws = (torch.randint(0, max(state.size, 1), (batch_size,), **kw),
-                 torch.randint(0, n_env, (batch_size,), **kw))
+        draws = episode_draws(state, batch_size, generator)
     slots, lanes = (torch.as_tensor(d, device=device).long() for d in draws)
     # advanced indices on axes 0 and 2 put the batch axis first
     return state.data.map(lambda buf: buf[slots, :, lanes].transpose(0, 1))

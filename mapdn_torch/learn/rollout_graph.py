@@ -28,8 +28,9 @@ eagerly, as a real step of the run, so that no step is run twice or
 skipped.  The warm-up runs on the current stream and the capture on a
 stream of its own (the default stream cannot capture): cuBLAS then makes
 the capture stream's workspace inside the capture, in the graphs' pool,
-and once it is freed (``_release_workspaces``) the pool keeps the memory
-for the replays without its counting as allocated.  The kernels' launch
+and once it is freed (``_release_workspaces``, in :func:`capture`, which
+the update graphs of ``learn/update_graph.py`` share) the pool keeps the
+memory for the replays without its counting as allocated.  The kernels' launch
 tallies (``nr_solve_small.launches``, ``nr_solve_large.launches``) count a
 replay's launches as its capture made them.
 
@@ -78,25 +79,49 @@ def _tensors(module):
     return [(t, t.data_ptr()) for t in list(module.parameters()) + list(module.buffers())]
 
 
+def replaced(trainer, methods, modules):
+    """Whether a callable that a captured region runs through is not the
+    program's own: one of the trainer's ``methods`` or any method of the
+    env or the model replaced on the instance, or one of ``modules`` (or a
+    module inside one) whose ``forward`` was replaced or hooked."""
+    if any(name in vars(trainer) for name in methods):
+        return True
+    for obj in (trainer.env, trainer.model):
+        cls = type(obj)
+        if any(callable(v) and callable(getattr(cls, k, None)) for k, v in vars(obj).items()):
+            return True
+    hooks = torch.nn.modules.module
+    if hooks._global_forward_hooks or hooks._global_forward_pre_hooks:
+        return True
+    return any("forward" in vars(m) or m._forward_hooks or m._forward_pre_hooks
+               for module in modules for m in module.modules())
+
+
 def wrapped(trainer, policy):
     """Whether a callable the rollout step runs through is not the
     program's own: one of the trainer's step methods
     (``trainer._STEP_METHODS``) or any method of the env or the model
     replaced on the instance, an env solver other than the one the env
     built, or a policy module whose ``forward`` was replaced or hooked."""
-    if any(name in vars(trainer) for name in trainer._STEP_METHODS):
-        return True
-    for obj in (trainer.env, trainer.model):
-        cls = type(obj)
-        if any(callable(v) and callable(getattr(cls, k, None)) for k, v in vars(obj).items()):
-            return True
-    if trainer.env._solver is not trainer.env._built_solver:
-        return True
-    hooks = torch.nn.modules.module
-    if hooks._global_forward_hooks or hooks._global_forward_pre_hooks:
-        return True
-    return any("forward" in vars(m) or m._forward_hooks or m._forward_pre_hooks
-               for m in policy.modules())
+    return (trainer.env._solver is not trainer.env._built_solver
+            or replaced(trainer, trainer._STEP_METHODS, [policy]))
+
+
+def capture(region, generator, pool, stream):
+    """The CUDA graph of ``region``, captured on ``stream`` into ``pool``
+    (None: a new one) with ``generator`` registered.  cuBLAS's workspaces
+    are released before it, so that the capture stream's, made in the
+    capture (one for each thread that multiplies: a backward's too), take
+    the place of the current stream's in the allocated memory rather than
+    adding to its peak, and after it, when the capture stream's go back to
+    the pool."""
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    _release_workspaces()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        region()
+    _release_workspaces()
+    return graph
 
 
 class _Buffers:
@@ -295,13 +320,9 @@ class RolloutGraph:
         replay)."""
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
         before = _launches()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            region()
+        graph = capture(region, self.generator, self.pool, self.stream)
         made = tuple(b - a for a, b in zip(before, _launches()))
         _credit(*(-m for m in made))
         self.pool = graph.pool()
-        _release_workspaces()
         return graph, made

@@ -33,7 +33,11 @@ replay CUDA graphs of the step (``learn/rollout_graph.py``): one launch a
 step where the eager step launches some hundreds of kernels, with the same
 work, draws and results.  :meth:`PGTrainer._eager_reason` says where
 they run eagerly instead, and :meth:`PGTrainer.rollout_counts` tallies
-captures, replays and eager steps.
+captures, replays and eager steps.  Likewise each update step of an
+algorithm that declares it capturable replays a CUDA graph of the step
+(``learn/update_graph.py``), one launch an epoch, where
+:meth:`PGTrainer._update_eager_reason` finds nothing that asks to see it;
+:meth:`PGTrainer.update_counts` tallies them.
 
 Randomness comes from the carry's ``torch.Generator`` on the trainer's
 device.  ``_train_chunk`` also takes the draws explicitly (the parity tests
@@ -61,7 +65,7 @@ import torch
 from mapdn_torch.algos.base import AlgoState, Transition, soft_update
 from mapdn_torch.envs.voltage_control import EnvState
 from mapdn_torch.learn import replay as rb
-from mapdn_torch.learn import rollout_graph
+from mapdn_torch.learn import rollout_graph, update_graph
 from mapdn_torch.learn.sampling import global_norm, normal_entropy
 from mapdn_torch.utils import lanes, profiling
 from mapdn_torch.utils.device import resolve_device
@@ -106,6 +110,11 @@ class PGTrainer:
     # the trainer's own methods a rollout step runs through, eagerly or in
     # a graph: a wrapper installed on one of them must see every step
     _STEP_METHODS = ("_rollout_step", "_rollout_step_body", "_step_transition")
+    # why an update phase's steps run eagerly (PGTrainer._update_eager_reason)
+    UPDATE_EAGER_REASONS = ("cpu", "draws", "shard", "tracer", "algorithm", "wrapped")
+    # the trainer's own methods an update step runs through; a wrapper
+    # installed on one of them must see every epoch
+    _UPDATE_METHODS = ("_update_epochs", "_sample_batch", "_update_step")
 
     def __init__(self, cfg, model, env, device=None):
         self.device = resolve_device(device if device is not None else model.device)
@@ -133,6 +142,10 @@ class PGTrainer:
         self._rollout_counts = {"captures": {"step": 0, "reset": 0},
                                 "replays": {"step": 0, "reset": 0},
                                 "eager": dict.fromkeys(self.EAGER_REASONS, 0)}
+        self._update_graph = None
+        self._update_counts = {"captures": dict.fromkeys(_UPDATE_KEYS, 0),
+                               "replays": dict.fromkeys(_UPDATE_KEYS, 0),
+                               "eager": dict.fromkeys(self.UPDATE_EAGER_REASONS, 0)}
 
     # ------------------------------------------------------------------ init
     def init_carry(self, seed=0) -> TrainerCarry:
@@ -335,10 +348,14 @@ class PGTrainer:
         trainer.py:58-71).  A ring whose capacity equals batch_size without
         lane subsampling gives the same window every epoch: sampled once.
         ``draws[which + "_lanes" | "_starts" | "_loss"]`` give each epoch's
-        draws where present."""
+        draws where present.  On the card the steps replay the update
+        graphs unless :meth:`_update_eager_reason` gives a reason."""
         cfg = self.cfg
         if epochs <= 0:
             return {}
+        reason = self._update_eager_reason(algo, which, draws)
+        if reason is None:
+            return self._graph_update(algo, replay, generator, which, epochs)
         subsampling = cfg.update_lanes is not None and cfg.update_lanes < cfg.n_envs
         fixed = (not cfg.episodic and replay.capacity == cfg.batch_size
                  and not subsampling)
@@ -351,12 +368,57 @@ class PGTrainer:
         epoch_draws = lambda key, e: None if draws.get(key) is None else draws[key][e]
         stats = []
         for e in range(epochs):
+            self._update_counts["eager"][reason] += 1
+            profiling.count("train.eager_updates", 1)
             batch, shard = fixed_batch or sample(e)
             with shard.active() if shard is not None else contextlib.nullcontext():
                 stats.append(self._update_step(
                     algo, batch.map(self._upcast), which, shard, generator,
                     epoch_draws(which + "_loss", e)))
         return _mean_stats(stats)
+
+    def _update_eager_reason(self, algo, which, draws):
+        """Why the update steps of ``which`` run eagerly (one of
+        ``UPDATE_EAGER_REASONS``), or None where they replay the update
+        graphs: not on the card; explicit draws of its own (the parity
+        tests' replayed ones); under a lane shard (its sums are
+        all-reduces); an active tracer (whose spans a replay would not
+        see); an algorithm that does not declare its update step capturable
+        (``update_capturable``); a callable of the step that is not the
+        program's own (one of ``_UPDATE_METHODS``, a method of the model or
+        the env replaced on the instance, a module's forward replaced or
+        hooked: :func:`rollout_graph.replaced`)."""
+        if not update_graph.UpdateGraph.supports(self.device):
+            return "cpu"
+        if any(draws.get(which + part) is not None
+               for part in ("_lanes", "_starts", "_episodes", "_loss")):
+            return "draws"
+        with self._lane_context():
+            if lanes.current() is not None:
+                return "shard"
+        if profiling.active() is not None:
+            return "tracer"
+        if not self.model.update_capturable:
+            return "algorithm"
+        if rollout_graph.replaced(self, self._UPDATE_METHODS, update_graph.modules(algo)):
+            return "wrapped"
+        return None
+
+    def update_counts(self):
+        """The update steps so far: graph captures and replays by ``which``
+        (a capture's step is its warm-up, run eagerly), and the steps that
+        ran eagerly by reason (``UPDATE_EAGER_REASONS``)."""
+        return {k: dict(v) for k, v in self._update_counts.items()}
+
+    def _graph_update(self, algo, replay, generator, which, epochs):
+        """``epochs`` update steps of ``which`` through the update graphs,
+        (re)built where they do not bind the algorithm, the ring or the
+        generator; returns the steps' stats averaged."""
+        graph = self._update_graph
+        if graph is None or not graph.binds(algo, replay, generator):
+            self._update_graph = None   # the old graphs' memory goes first
+            graph = self._update_graph = update_graph.UpdateGraph(self, algo, replay, generator)
+        return graph.run(which, replay, epochs)
 
     def _sample_batch(self, replay, generator, which, e, draws):
         """One epoch's batch, and the lane shard of its rows (None: every

@@ -60,11 +60,11 @@ SPANS = (
 )
 # every counter: lanes x solves, the solves' Newton iterations summed over
 # their lanes, the lanes each env step terminated, the trainer's rollout
-# steps that ran eagerly (all of them while a tracer is active: a step
-# replayed as a CUDA graph calls no Python, so it opens no span), the soft
-# target updates
+# steps and update steps that ran eagerly (all of them while a tracer is
+# active: a step replayed as a CUDA graph calls no Python, so it opens no
+# span), the soft target updates
 COUNTERS = ("pf.lane_solves", "pf.nr_iters", "env.terminated_lanes", "train.eager_steps",
-            "train.target_updates")
+            "train.eager_updates", "train.target_updates")
 
 _ACTIVE = None
 _NO_SPAN = contextlib.nullcontext()

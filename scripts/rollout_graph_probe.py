@@ -1,25 +1,31 @@
-"""Probes of the trainer's rollout CUDA graphs (mapdn_torch/learn/rollout_graph.py)
-on a benchmark cell's trainer, one JSON line a cell, each starting "probe ".
+"""Probes of the trainer's rollout and update CUDA graphs
+(mapdn_torch/learn/rollout_graph.py, update_graph.py) on a benchmark
+cell's trainer, one JSON line a cell, each starting "probe ".
 
     python scripts/rollout_graph_probe.py window <cell>:<seed>:<seconds> ...
     python scripts/rollout_graph_probe.py parts <cell>:<seed> ...
     python scripts/rollout_graph_probe.py profile <cell>:<seed>:<episodes> ...
 
 Each imports the tree of the working directory, so that one copy of this
-script reads a parent commit's checkout too (``window`` alone there: the
-parent has no graphs, its graph readings are null).
+script reads a parent commit's checkout too (``window`` alone there: a
+parent without the graphs gives null graph readings).
 
 * ``window``: one run of the cell through perfbench's harness
-  (``--trace 0``): its result, the trainer's rollout tallies, the memory
+  (``--trace 0``): its result, the trainer's rollout tallies, the update
+  tallies over the window (``update_counts``, null before the update
+  graphs), the memory
   allocated before the graphs' buffers, before each warm-up and after each
   capture, and over the window the peak allocated (the benchmark's
   ``train_peak_mem_gib``), the peak reserved, the reserved at its end and
-  the bytes of the graphs' private pool (the segments of the caching
-  allocator that carry its id).
+  the bytes of the rollout graphs' and the update graphs' private pools
+  (the segments of the caching allocator that carry each one's id).
 * ``parts``: where a graphed step's time goes after one chunk: the step
   graph's replays back to back (host us and device ms a replay, CUDA
   events), replay plus the flag's read, the engagement test, a whole chunk
-  through ``RolloutGraph.step`` and the update phase.
+  through ``RolloutGraph.step``, and the update phase on that chunk's ring
+  as the trainer runs it and eagerly (a pass-through wrapper on
+  ``_update_step``): host ms, and stream ms between two events; and each
+  update graph's replays back to back (device ms a replay).
 * ``profile``: ``episodes`` chunks under ``torch.profiler``, graphed and
   then eager (a pass-through wrapper on ``get_actions`` keeps every step
   eager), with none of the benchmark's wrappers: busy share, device ms a
@@ -94,7 +100,7 @@ def window(args):
                 marks.append((f"after {kind} capture", _allocated_mib()))
         cls.__init__, cls._run = marked_init, marked_run
 
-    peaks = {}
+    peaks, updates = {}, {}
     make = traffic.make
 
     def make_with_peaks(cell, seed, device):
@@ -102,13 +108,21 @@ def window(args):
         timed = runner.window   # the trainer is made later, in setup()
 
         def window_with_peaks(seconds):
+            tr = runner.trainer
+            counts = getattr(tr, "update_counts", None)
+            before = counts and counts()
             out = timed(seconds)
-            graph = getattr(getattr(runner, "trainer", None), "_graph", None)
+            graph, ugraph = tr._graph, getattr(tr, "_update_graph", None)
             peaks.update(
                 peak_allocated_mib=torch.cuda.max_memory_allocated() / MIB,
                 peak_reserved_mib=torch.cuda.max_memory_reserved() / MIB,
                 reserved_mib=torch.cuda.memory_reserved() / MIB,
-                graph_pool_mib=_pool_mib(None if graph is None else graph.pool))
+                graph_pool_mib=_pool_mib(None if graph is None else graph.pool),
+                update_pool_mib=_pool_mib(None if ugraph is None else ugraph.pool))
+            if counts:
+                after = counts()
+                updates.update({k: {w: after[k][w] - before[k][w] for w in after[k]}
+                                for k in after})
             return out
         runner.window = window_with_peaks
         return runner
@@ -119,10 +133,12 @@ def window(args):
         seen.clear()
         marks.clear()
         peaks.clear()
+        updates.clear()
         result, _ = harness.run(cell, int(seed), float(seconds), 0, time.perf_counter())
         counts = getattr(seen[-1], "rollout_counts", None) if seen else None
         _emit({"cell": cell, "seed": int(seed), "correct": result["correct"],
                "metrics": result["metrics"], "counts": counts and counts(),
+               "window_update_counts": dict(updates) or None,
                "allocated_mib": marks, "window_memory": dict(peaks)})
         seen.clear()
         torch.cuda.empty_cache()
@@ -176,10 +192,31 @@ def parts(args):
         c, _ = g.end_chunk(c)
         torch.cuda.synchronize()
         out["graphed_step_ms"] = 1e3 * (time.perf_counter() - t0) / n
-        t0 = time.perf_counter()
-        tr._update_phase(c.algo, c.replay, c.generator)
-        torch.cuda.synchronize()
-        out["update_ms"] = 1e3 * (time.perf_counter() - t0)
+        for side in ("update", "update_eager"):
+            if side == "update_eager":
+                tr._update_step = (lambda fn: (lambda *a: fn(*a)))(tr._update_step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0.record()
+            tr._update_phase(c.algo, c.replay, c.generator)
+            e1.record()
+            torch.cuda.synchronize()
+            out[side + "_ms"] = 1e3 * (time.perf_counter() - t0)
+            out[side + "_stream_ms"] = e0.elapsed_time(e1)
+        del tr._update_step
+        out["update_counts"] = tr.update_counts()
+        # each update graph's replays back to back (as many as its epochs,
+        # from a zeroed epoch index): the device ms of one update step
+        ug = getattr(tr, "_update_graph", None)
+        for (which, _), graph in (ug.graphs.items() if ug is not None else ()):
+            n = getattr(tr.cfg, which + "_update_epochs")
+            ug.epoch.zero_()
+            e0.record()
+            for _ in range(n):
+                graph.replay()
+            e1.record()
+            torch.cuda.synchronize()
+            out[f"{which}_replay_device_ms"] = e0.elapsed_time(e1) / n
         _emit(out)
         del runner, tr, g, step, carry, c
         torch.cuda.empty_cache()

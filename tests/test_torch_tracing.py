@@ -27,7 +27,7 @@ PARENTS = {
     "train.chunk": {None}, "train.rollout_step": {"train.chunk"},
     "train.policy": {"train.rollout_step"}, "env.step": {"train.rollout_step", "eval.step"},
     "env.reset": {"train.rollout_step", None}, "pf.solve": {"env.step", "env.reset"},
-    "host.sync": {"train.rollout_step", "update.sample", "eval.step", None},
+    "host.sync": {"train.rollout_step", "eval.step", None},
     "train.ring_write": {"train.chunk"}, "train.value_fill": {"train.chunk"},
     "train.update": {"train.chunk"}, "update.sample": {"train.update"},
     "update.loss": {"train.update"}, "update.backward": {"train.update"},
@@ -71,11 +71,14 @@ def _tensors(x):
 
 
 class _Counted:
-    """Wrappers that count the program's host reads, and sum each solve's
-    Newton iterations and each step's terminated lanes, on their own."""
+    """Wrappers that count the program's host reads and, apart from them,
+    its window starts (drawn on the device, read by nothing), and sum each
+    solve's Newton iterations and each step's terminated lanes, on their
+    own."""
 
     def __init__(self, monkeypatch, env):
-        self.reads = self.solves = self.lane_solves = self.nr_iters = self.terminated = 0
+        self.reads = self.starts = self.solves = self.lane_solves = 0
+        self.nr_iters = self.terminated = 0
         any_lane, window_start, solver, step = (lanes.any_lane, rb.window_start,
                                                 env._solver, env.step)
 
@@ -84,6 +87,12 @@ class _Counted:
                 self.reads += 1
                 return fn(*a, **kw)
             return run
+
+        def counted_start(*a, **kw):
+            self.starts += 1
+            start = window_start(*a, **kw)
+            assert isinstance(start, torch.Tensor) and start.dim() == 0
+            return start
 
         def counted_solver(*a, **kw):
             res = solver(*a, **kw)
@@ -98,7 +107,7 @@ class _Counted:
             return out
 
         monkeypatch.setattr(lanes, "any_lane", counted_read(any_lane))
-        monkeypatch.setattr(rb, "window_start", counted_read(window_start))
+        monkeypatch.setattr(rb, "window_start", counted_start)
         monkeypatch.setattr(env, "_solver", counted_solver)
         monkeypatch.setattr(env, "step", counted_step)
 
@@ -149,7 +158,8 @@ def test_chunk_traced_is_bit_identical_and_counts_match(monkeypatch, ring_steps)
     assert calls("env.reset") >= 1          # the lanes' episodes end inside the chunk
     assert calls("pf.solve") == calls("env.step") + calls("env.reset") == counted.solves
     assert calls("host.sync") == counted.reads
-    assert counted.reads >= CHUNK + 3       # each step's auto-reset gate, each window start
+    assert counted.reads >= CHUNK           # each step's auto-reset gate
+    assert counted.starts == 3              # each window start, on the device
     assert calls("train.ring_write") == (1 if on._stack_emit else CHUNK)
     assert calls("train.value_fill") == calls("train.update") == 1
     assert calls("update.sample") == 3
