@@ -1,30 +1,33 @@
-"""The trainer's rollout step as CUDA graphs.
+"""The trainer's rollout chunk, its steps as CUDA graphs.
 
 One vectorized rollout step (the policy, the actions' translation, the env
 step with its power-flow solve, the transition and the step's stats) is a
 few hundred small kernels, and on the card the host takes longer to launch
-them than the device takes to run them.  :class:`RolloutGraph` captures
-the step once as a CUDA graph and replays it on every later step: one
-launch where there were hundreds.  The work, the order of the draws and
-the results are the eager step's, bit for bit.
+them than the device takes to run them.  :class:`RolloutGraph` drives
+every chunk of the trainer: it captures the step once as a CUDA graph and
+replays it on every later step, one launch where there were hundreds.  A
+step that may not replay (``PGTrainer._eager_reason``: on the CPU too)
+runs the trainer's ``_rollout_step`` uncaptured, and :meth:`RolloutGraph.write`
+puts its transition and stats where the step graph would.  The work, the
+order of the draws and the results are the same either way, bit for bit.
 
 Two graphs, captured each at the first step that needs it:
 
 * the step: everything up to the auto-reset gate.  It reads the carry from
   the graph's static buffers and writes the new env state, obs and GRU
-  state back over them, the transition into its ring row (the row the
-  eager path's ring write would give it, from a step index held on the
-  device), the step's lane means into their column of a stats buffer, and
-  the flag that some lane terminated;
+  state back over them, the transition into its ring row (the step's row
+  of a FIFO ring, from a step index held on the device), the step's lane
+  means into their column of a stats buffer, and the flag that some lane
+  terminated;
 * the reset, replayed on the steps whose flag holds (one host read a step,
-  as the eager path's gate): one reset attempt of every lane, warm-started
+  as the uncaptured step's gate): one reset attempt of every lane, warm-started
   from the voltages before the step, taken by the terminated lanes, and
   the transition's ``next_state`` patched to the fresh episode's obs.
 
 The carry's ``torch.Generator`` is registered with each graph, so a replay
-draws the eager step's numbers at its Philox offsets and moves the
+draws the uncaptured step's numbers at its Philox offsets and moves the
 generator on as far.  Each capture follows a warm-up: the same code run
-eagerly, as a real step of the run, so that no step is run twice or
+uncaptured, as a real step of the run, so that no step is run twice or
 skipped.  The warm-up runs on the current stream and the capture on a
 stream of its own (the default stream cannot capture): cuBLAS then makes
 the capture stream's workspace inside the capture, in the graphs' pool,
@@ -34,9 +37,9 @@ memory for the replays without its counting as allocated.  The kernels' launch
 tallies (``nr_solve_small.launches``, ``nr_solve_large.launches``) count a
 replay's launches as its capture made them.
 
-A replay calls no Python, so the trainer replays only where every callable
-the step runs through is the program's own (:func:`wrapped`) and where
-nothing else asks to see the step (``PGTrainer._eager_reason``).
+A replay calls no Python, so a step replays only where every callable it
+runs through is the program's own (:func:`wrapped`) and where nothing else
+asks to see it (``PGTrainer._eager_reason``).
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ _STATE = tuple(f.name for f in dataclasses.fields(EnvState))
 _TRANSITION = tuple(f.name for f in dataclasses.fields(Transition))
 # each stat's row of the stats buffer starts a multiple of 128 elements
 # in, aligned as a tensor of its own is, so that its mean adds in the
-# order the eager path's mean of the stacked steps does
+# order a mean of the steps stacked in a tensor of their own does
 _ROW_ALIGN = 128
 
 
@@ -145,10 +148,11 @@ class _Buffers:
 
 
 class RolloutGraph:
-    """The step and reset graphs of one trainer's rollout, bound to its
-    env and model, the carry's policy module and parameters, generator and
-    ring (in the stack-emit mode, where each chunk writes every row anew,
-    to a ring of its own that replaces the carry's)."""
+    """The chunk driver of one trainer's rollout and its step and reset
+    graphs, bound to its env and model, the carry's policy module and
+    parameters, generator and ring (in the stack-emit mode, where each
+    chunk writes every row anew, to a ring of its own that replaces the
+    carry's)."""
 
     @staticmethod
     def supports(device):
@@ -214,11 +218,13 @@ class RolloutGraph:
         self.t_host = 0
 
     def end_chunk(self, carry):
-        """(carry, the chunk's stats): each step's lane means averaged, and
-        outside episodic mode the ring's pointer and fill past the chunk's
-        rows, as the eager path's ring writes leave them."""
+        """(carry, the chunk's stats): each step's lane means averaged, as
+        the trainer's ``_rollout_stats`` gives them, and outside episodic
+        mode the ring's pointer and fill past the chunk's rows, as a FIFO
+        ring's writes of them leave them."""
         n = self.chunk_len
-        stats = {k: self.stats[i, :n].mean() for i, k in enumerate(self.keys)}
+        stats = self.trainer._rollout_stats(
+            {k: self.stats[i, :n].mean() for i, k in enumerate(self.keys)})
         replay = carry.replay
         cap = replay.capacity
         if self.mode == "stack":
@@ -245,8 +251,8 @@ class RolloutGraph:
 
     @torch.no_grad()
     def write(self, t, trans, stats):
-        """Step ``t``'s transition and stats from an eager step, where the
-        step graph would have written them."""
+        """Step ``t``'s transition and stats from an uncaptured step, where
+        the step graph would have written them."""
         self._check_step(t)
         self.row.fill_(max(t + self.base_host, 0) % self.n_rows)
         self.t.fill_(t)
@@ -306,7 +312,7 @@ class RolloutGraph:
     def _run(self, kind, region):
         graph = self.graphs.get(kind)
         if graph is None:
-            region()   # the warm-up: this step, eagerly
+            region()   # the warm-up: this step, uncaptured
             self.graphs[kind], self.launches[kind] = self._capture(region)
             self.counts["captures"][kind] += 1
         else:

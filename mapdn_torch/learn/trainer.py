@@ -12,10 +12,10 @@ fire whenever a chunk crosses a ``target_update_freq`` boundary.  Each env
 step is one batched power-flow solve, plus one per reset attempt on steps
 where lanes terminated.
 
-Transitions are emitted per step and written to the ring once per chunk
-when the chunk refills the whole ring (``chunk_len >= capacity``, the
-vectorized regime); only the newest ``capacity`` steps are kept.
-Otherwise each step is written into the ring as it is produced.
+Each step's transition is written into its ring row as it is produced.
+Where a chunk refills the whole ring (``chunk_len >= capacity``, the
+vectorized regime) only the newest ``capacity`` steps are kept: the
+earlier ones write the first row, which a later step writes again.
 
 Off-policy algorithms keep the ring across chunks and episodes; on-policy
 ones clear it after each update.
@@ -28,16 +28,16 @@ update phase runs on batches of whole single-lane episodes every
 ``behaviour_update_freq`` episodes and the soft target update every
 ``target_update_freq`` episodes, both from :meth:`PGTrainer.run_episode`.
 
-On the card, where nothing asks to see the step, the rollout steps
-replay CUDA graphs of the step (``learn/rollout_graph.py``): one launch a
-step where the eager step launches some hundreds of kernels, with the same
-work, draws and results.  :meth:`PGTrainer._eager_reason` says where
-they run eagerly instead, and :meth:`PGTrainer.rollout_counts` tallies
-captures, replays and eager steps.  Likewise each update step of an
-algorithm that declares it capturable replays a CUDA graph of the step
-(``learn/update_graph.py``), one launch an epoch, where
-:meth:`PGTrainer._update_eager_reason` finds nothing that asks to see it;
-:meth:`PGTrainer.update_counts` tallies them.
+Each phase has one implementation, and whether to capture is its only
+switch.  Every rollout step goes through ``learn/rollout_graph.py``: on
+the card, where nothing asks to see it, it replays a CUDA graph of the
+step, one launch for some hundreds of kernels, with the same work, draws
+and results; :meth:`PGTrainer._eager_reason` says why it runs
+uncaptured instead.  Likewise every update step goes through
+``learn/update_graph.py``, one launch an epoch where
+:meth:`PGTrainer._update_eager_reason` finds nothing that asks to see
+it.  :meth:`PGTrainer.rollout_counts` and :meth:`PGTrainer.update_counts`
+tally them.
 
 Randomness comes from the carry's ``torch.Generator`` on the trainer's
 device.  ``_train_chunk`` also takes the draws explicitly (the parity tests
@@ -104,17 +104,17 @@ def _mean_stats(stat_list):
 
 
 class PGTrainer:
-    # why a chunk's rollout steps run eagerly, in the order they are tested
+    # why a rollout step runs uncaptured, in the order they are tested
     # (PGTrainer._eager_reason)
     EAGER_REASONS = ("cpu", "draws", "shard", "tracer", "algorithm", "solver", "wrapped")
-    # the trainer's own methods a rollout step runs through, eagerly or in
-    # a graph: a wrapper installed on one of them must see every step
+    # the trainer's own methods a rollout step runs through, uncaptured or
+    # in a graph: a wrapper installed on one of them must see every step
     _STEP_METHODS = ("_rollout_step", "_rollout_step_body", "_step_transition")
-    # why an update phase's steps run eagerly (PGTrainer._update_eager_reason)
+    # why an update phase's steps run uncaptured (PGTrainer._update_eager_reason)
     UPDATE_EAGER_REASONS = ("cpu", "draws", "shard", "tracer", "algorithm", "wrapped")
-    # the trainer's own methods an update step runs through; a wrapper
-    # installed on one of them must see every epoch
-    _UPDATE_METHODS = ("_update_epochs", "_sample_batch", "_update_step")
+    # the trainer's own methods an update step runs through, uncaptured or
+    # in a graph: a wrapper installed on one of them must see every epoch
+    _UPDATE_METHODS = ("_update_epochs", "_upcast", "_update_step")
 
     def __init__(self, cfg, model, env, device=None):
         self.device = resolve_device(device if device is not None else model.device)
@@ -279,29 +279,23 @@ class PGTrainer:
             stats["mean_train_" + k] = v.mean()
         return trans, next_hid, stats
 
-    def _eager_reason(self, carry, step_draws):
-        """Why a chunk's rollout steps run eagerly (one of
-        ``EAGER_REASONS``), or None where they replay the rollout graphs:
-        not on the card; explicit draws (the parity tests' replayed ones);
-        under a lane shard (its gate is an all-reduce); and the reasons of
-        :meth:`_step_eager_reason`."""
+    def _eager_reason(self, carry, draws):
+        """Why a rollout step runs uncaptured (one of ``EAGER_REASONS``), or
+        None where it replays the rollout graphs: not on the card; explicit
+        draws of the step's own (the parity tests' replayed ones); under a
+        lane shard (its gate is an all-reduce); an active tracer (whose
+        spans and counters a replay would not see); an algorithm that does
+        not declare its rollout capturable (``rollout_capturable``); an env
+        whose solver reads the host (``VoltageControlEnv.solver_capturable``:
+        the torch-op solver with its early exit); a callable of the step
+        that is not the program's own (:func:`rollout_graph.wrapped`)."""
         if not rollout_graph.RolloutGraph.supports(carry.obs.device):
             return "cpu"
-        if any(d is not None for d in step_draws):
+        if draws is not None:
             return "draws"
         with self._lane_context():
             if lanes.current() is not None:
                 return "shard"
-        return self._step_eager_reason(carry)
-
-    def _step_eager_reason(self, carry):
-        """The reasons that are tested again before each replay: an active
-        tracer (whose spans and counters a replay would not see); an
-        algorithm that does not declare its rollout capturable
-        (``rollout_capturable``); an env whose solver reads the host
-        (``VoltageControlEnv.solver_capturable``: the torch-op solver with
-        its early exit); a callable of the step that is not the program's
-        own (:func:`rollout_graph.wrapped`)."""
         if profiling.active() is not None:
             return "tracer"
         if not self.model.rollout_capturable:
@@ -312,73 +306,56 @@ class PGTrainer:
             return "wrapped"
         return None
 
-    def _tally_eager(self, reason):
-        self._rollout_counts["eager"][reason] += 1
-        profiling.count("train.eager_steps", 1)
-
     def rollout_counts(self):
         """The rollout steps so far: graph captures and replays (``step``
-        and ``reset``; a capture's step is its warm-up, run eagerly), and
-        the steps that ran eagerly by reason (``EAGER_REASONS``)."""
+        and ``reset``; a capture's step is its warm-up, run uncaptured),
+        and under ``eager`` the steps that ran uncaptured by reason
+        (``EAGER_REASONS``)."""
         return {k: dict(v) for k, v in self._rollout_counts.items()}
 
-    def _graph_chunk(self, carry):
+    def _rollout_chunk(self, carry, step_draws):
         """A chunk's rollout steps through the rollout graphs, (re)built
-        where they do not bind the carry; a step that a tracer or a wrapper
-        appearing inside the chunk keeps eager writes its row as the graph
+        where they do not bind the carry: a step that :meth:`_eager_reason`
+        gives no reason replays them, any other runs :meth:`_rollout_step`
+        (with ``step_draws[t]``) and writes its row where the step graph
         would.  Returns (carry, the rollout stats)."""
-        if self._graph is None or not self._graph.binds(carry):
-            self._graph = None   # the old graphs' memory goes first
-            self._graph = rollout_graph.RolloutGraph(self, carry)
         graph = self._graph
+        if graph is None or not graph.binds(carry):
+            self._graph = None   # the old graphs' memory goes first
+            graph = self._graph = rollout_graph.RolloutGraph(self, carry)
         graph.begin_chunk(carry)
         for t in range(self._chunk_len):
-            reason = self._step_eager_reason(carry)
+            reason = self._eager_reason(carry, step_draws[t])
             if reason is None:
                 carry = graph.step(carry)
             else:
-                self._tally_eager(reason)
-                carry, trans, stats = self._rollout_step(carry)
-                graph.write(t, trans, stats)
+                self._rollout_counts["eager"][reason] += 1
+                profiling.count("train.eager_steps", 1)
+                carry, trans, stats = self._rollout_step(carry, step_draws[t])
+                with profiling.span("train.ring_write"):
+                    graph.write(t, trans, stats)
         return graph.end_chunk(carry)
 
     # --------------------------------------------------------------- updates
     def _update_epochs(self, algo, replay, generator, *, which, epochs, draws):
-        """``epochs`` optimizer steps on freshly sampled windows (reference
-        trainer.py:58-71).  A ring whose capacity equals batch_size without
-        lane subsampling gives the same window every epoch: sampled once.
-        ``draws[which + "_lanes" | "_starts" | "_loss"]`` give each epoch's
-        draws where present.  On the card the steps replay the update
-        graphs unless :meth:`_update_eager_reason` gives a reason."""
-        cfg = self.cfg
+        """``epochs`` optimizer steps of ``which`` on freshly sampled
+        windows (reference trainer.py:58-71) through the update graphs,
+        (re)built where they do not bind the algorithm, the ring or the
+        generator: replayed unless :meth:`_update_eager_reason` gives a
+        reason, else their code run uncaptured.  ``draws[which + "_lanes" |
+        "_starts" | "_episodes" | "_loss"]`` give each epoch's draws where
+        present.  Returns the steps' stats averaged."""
         if epochs <= 0:
             return {}
         reason = self._update_eager_reason(algo, which, draws)
-        if reason is None:
-            return self._graph_update(algo, replay, generator, which, epochs)
-        subsampling = cfg.update_lanes is not None and cfg.update_lanes < cfg.n_envs
-        fixed = (not cfg.episodic and replay.capacity == cfg.batch_size
-                 and not subsampling)
-
-        def sample(e):
-            with profiling.span("update.sample"):
-                return self._sample_batch(replay, generator, which, e, draws)
-
-        fixed_batch = sample(0) if fixed else None
-        epoch_draws = lambda key, e: None if draws.get(key) is None else draws[key][e]
-        stats = []
-        for e in range(epochs):
-            self._update_counts["eager"][reason] += 1
-            profiling.count("train.eager_updates", 1)
-            batch, shard = fixed_batch or sample(e)
-            with shard.active() if shard is not None else contextlib.nullcontext():
-                stats.append(self._update_step(
-                    algo, batch.map(self._upcast), which, shard, generator,
-                    epoch_draws(which + "_loss", e)))
-        return _mean_stats(stats)
+        graph = self._update_graph
+        if graph is None or not graph.binds(algo, replay, generator):
+            self._update_graph = None   # the old graphs' memory goes first
+            graph = self._update_graph = update_graph.UpdateGraph(self, algo, replay, generator)
+        return graph.run(which, replay, epochs, draws, reason)
 
     def _update_eager_reason(self, algo, which, draws):
-        """Why the update steps of ``which`` run eagerly (one of
+        """Why the update steps of ``which`` run uncaptured (one of
         ``UPDATE_EAGER_REASONS``), or None where they replay the update
         graphs: not on the card; explicit draws of its own (the parity
         tests' replayed ones); under a lane shard (its sums are
@@ -406,32 +383,10 @@ class PGTrainer:
 
     def update_counts(self):
         """The update steps so far: graph captures and replays by ``which``
-        (a capture's step is its warm-up, run eagerly), and the steps that
-        ran eagerly by reason (``UPDATE_EAGER_REASONS``)."""
+        (a capture's step is its warm-up, run uncaptured), and under
+        ``eager`` the steps that ran uncaptured by reason
+        (``UPDATE_EAGER_REASONS``)."""
         return {k: dict(v) for k, v in self._update_counts.items()}
-
-    def _graph_update(self, algo, replay, generator, which, epochs):
-        """``epochs`` update steps of ``which`` through the update graphs,
-        (re)built where they do not bind the algorithm, the ring or the
-        generator; returns the steps' stats averaged."""
-        graph = self._update_graph
-        if graph is None or not graph.binds(algo, replay, generator):
-            self._update_graph = None   # the old graphs' memory goes first
-            graph = self._update_graph = update_graph.UpdateGraph(self, algo, replay, generator)
-        return graph.run(which, replay, epochs)
-
-    def _sample_batch(self, replay, generator, which, e, draws):
-        """One epoch's batch, and the lane shard of its rows (None: every
-        row is here)."""
-        cfg = self.cfg
-        epoch_draws = lambda key: None if draws.get(key) is None else draws[key][e]
-        if cfg.episodic:
-            # batch_size counts whole episodes (reference default.yaml:21)
-            return rb.sample_episodes(replay, cfg.batch_size, generator,
-                                      draws=epoch_draws(which + "_episodes")), None
-        return rb.sample_window(replay, cfg.batch_size, cfg.update_lanes,
-                                generator=generator, lane_idx=epoch_draws(which + "_lanes"),
-                                start=epoch_draws(which + "_starts")), None
 
     def _update_step(self, algo, batch, which, shard, generator, loss_draws):
         """One optimizer step of ``which`` on ``batch``; returns its stats.
@@ -475,9 +430,11 @@ class PGTrainer:
         out.update(logged)
         return out
 
-    def _rollout_stats(self, stat_list):
-        """The chunk's rollout stats: each step's lane means, averaged."""
-        return _mean_stats(stat_list)
+    def _rollout_stats(self, stats):
+        """The chunk's rollout stats from this process's lane means averaged
+        over the chunk's steps (``RolloutGraph.end_chunk``): the same where
+        one process holds every lane."""
+        return stats
 
     def _sum_over_ranks(self, tensors):
         """Each tensor summed over the ranks (one process has none)."""
@@ -541,18 +498,7 @@ class PGTrainer:
         exists), then its rollout values; the update runs on the episode
         cadence (``_episodic_update``)."""
         slot = rb.episode_slot(carry.replay)
-        reason = self._eager_reason(carry, step_draws)
-        if reason is None:
-            carry, stats = self._graph_chunk(carry)
-        else:
-            roll_stats = []
-            for t in range(self._chunk_len):
-                self._tally_eager(reason)
-                carry, trans, stats = self._rollout_step(carry, step_draws[t])
-                roll_stats.append(stats)
-                with profiling.span("train.ring_write"):
-                    slot.map(lambda buf, x: buf[t].copy_(x), trans)
-            stats = self._rollout_stats(roll_stats)
+        carry, stats = self._rollout_chunk(carry, step_draws)
         if self.model.stores_rollout_value:
             self._fill_episode_values(carry, slot)
         carry.replay = rb.add_episode(carry.replay)
@@ -577,11 +523,7 @@ class PGTrainer:
             step_draws = draws.get("steps") or [None] * self._chunk_len
             if cfg.episodic:
                 return self._collect_episode(carry, step_draws)
-            reason = self._eager_reason(carry, step_draws)
-            if reason is None:
-                carry, stats = self._graph_chunk(carry)
-            else:
-                carry, stats = self._eager_chunk(carry, step_draws, reason)
+            carry, stats = self._rollout_chunk(carry, step_draws)
             if self.model.stores_rollout_value:
                 self._fill_ring_values(carry)
 
@@ -600,26 +542,6 @@ class PGTrainer:
                     for k in (keys if epochs[which] > 0 else ()):
                         stats[k] = torch.zeros((), device=self.device)
             return carry, stats
-
-    def _eager_chunk(self, carry, step_draws, reason):
-        """A chunk's rollout steps run eagerly, for ``reason``, and their
-        ring write; returns (carry, the rollout stats)."""
-        tail = collections.deque(maxlen=carry.replay.capacity)
-        roll_stats = []
-        for t in range(self._chunk_len):
-            self._tally_eager(reason)
-            carry, trans, stats = self._rollout_step(carry, step_draws[t])
-            roll_stats.append(stats)
-            if self._stack_emit:
-                tail.append(trans)
-            else:
-                with profiling.span("train.ring_write"):
-                    carry.replay = rb.add(carry.replay, trans)
-        if self._stack_emit:
-            with profiling.span("train.ring_write"):
-                stacked = tail[0].map(lambda *xs: torch.stack(xs), *list(tail)[1:])
-                carry.replay = rb.add_many(carry.replay, stacked)
-        return carry, self._rollout_stats(roll_stats)
 
     def _train_episode(self, carry: TrainerCarry, draws=None):
         """``_chunks_per_episode`` chunks with a soft target update after

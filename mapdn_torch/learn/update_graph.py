@@ -1,19 +1,23 @@
-"""The trainer's update steps as CUDA graphs.
+"""The trainer's update steps, as CUDA graphs.
 
 One optimizer step of the update phase (the window's gather, the loss,
 ``torch.autograd.grad``, the global norm, the clip and the RMSprop update
 in place) is some hundreds of small kernels at case33's sizes, launched by
-the host one epoch after another.  :class:`UpdateGraph` captures the step
-of each ``which`` (value, policy, mixer) once and replays it for every
-later epoch: one launch an epoch, with the eager step's work and results.
+the host one epoch after another.  :class:`UpdateGraph` runs every update
+step of a single-process trainer: it captures the step of each ``which``
+(value, policy, mixer) once and replays it for every later epoch, one
+launch an epoch.  An epoch that may not replay
+(``PGTrainer._update_eager_reason``: on the CPU too) runs the same code
+uncaptured, with the same work and results.
 
-A graph reads the algorithm's parameters and optimizer state and the ring
+A step reads the algorithm's parameters and optimizer state and the ring
 as they are, and updates the parameters and the state in place.  What the
-eager step draws before it reads the ring (``sample_window``'s lanes, then
+step draws before it reads the ring (``sample_window``'s lanes, then
 ``replay.window_start``; ``sample_episodes``' slots and lanes) is drawn
-eagerly before each replay, by the same functions in the same order, and
-copied into the graph's static index buffers; the gather from those
-buffers, with the ring's oldest row held on the device, is in the graph.
+before each step, outside the graph, by those functions in that order
+(or given explicitly), and copied into static index buffers; the gather
+from those buffers, with the ring's oldest row held on the device, is in
+the step.
 Where the window is the whole ring (``capacity == batch_size``) the step
 reads the ring itself, so no copy of it is made, and its oldest row, a
 host value there, picks the graph.  The losses of the graphed algorithms
@@ -22,7 +26,7 @@ buffer from an epoch index held on the device, so that their means over
 the epochs add in the order that ``trainer._mean_stats`` adds them.
 
 Capture follows ``learn/rollout_graph.py``: the carry's generator is
-registered with each graph, the warm-up is a real epoch run eagerly on the
+registered with each graph, the warm-up is a real epoch run uncaptured on the
 current stream, the capture runs on a side stream and releases its cuBLAS
 workspace to the pool after it.  Inside a step the modules' parameters
 stand aliased by fresh leaves on their storage (:func:`_aliased`): the
@@ -34,7 +38,7 @@ to it.  The update graphs share one private pool
 of their own; every tensor a capture allocates is freed by its end, so
 they may replay in any order.
 
-The trainer replays only where nothing asks to see a step
+A step replays only where nothing asks to see it
 (``PGTrainer._update_eager_reason``): a replay calls no Python.
 """
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch
 from mapdn_torch.algos.base import Transition
 from mapdn_torch.learn import replay as rb
 from mapdn_torch.learn.rollout_graph import _ROW_ALIGN, _tensors, capture
+from mapdn_torch.utils import profiling
 
 _TRANSITION = tuple(f.name for f in dataclasses.fields(Transition))
 _MODULES = ("policy", "value", "target_policy", "target_value", "mixer", "target_mixer")
@@ -121,26 +126,34 @@ class UpdateGraph:
                 and all(a is b and pa == pb for (a, pa), (b, pb) in zip(now, self.state))
                 and all(getattr(replay.data, f) is getattr(self.ring, f) for f in _TRANSITION))
 
-    def run(self, which, replay, epochs):
-        """``epochs`` update steps of ``which`` on ``replay``; returns their
-        stats, each averaged over the epochs."""
+    def run(self, which, replay, epochs, draws, reason):
+        """``epochs`` update steps of ``which`` on ``replay``, each after its
+        draws (``draws[which + part][e]`` where given): replayed where
+        ``reason`` is None, else run uncaptured and tallied under it.
+        Returns their stats, each averaged over the epochs."""
         if epochs > self.width:
             raise RuntimeError(f"{epochs} epochs past the stats buffer's {self.width} columns")
         cfg = self.cfg
         whole = not cfg.episodic and replay.capacity == cfg.batch_size
         oldest = rb.oldest_row(replay)
         if whole:
-            region = lambda: self._region(which, oldest)
+            region = lambda loss_draws=None: self._region(which, oldest, loss_draws)
         else:
             self.oldest.fill_(oldest)
-            region = lambda: self._region(which, self.oldest)
+            region = lambda loss_draws=None: self._region(which, self.oldest, loss_draws)
         key = (which, oldest if whole else None)
         self.epoch.zero_()
-        for _ in range(epochs):
-            self._draw(replay)
+        for e in range(epochs):
+            given = lambda part: None if draws.get(which + part) is None else draws[which + part][e]
+            self._draw(replay, given)
+            if reason is not None:
+                self.counts["eager"][reason] += 1
+                profiling.count("train.eager_updates", 1)
+                region(given("_loss"))
+                continue
             graph = self.graphs.get(key)
             if graph is None:
-                region()   # the warm-up: this epoch, eagerly
+                region()   # the warm-up: this epoch, uncaptured
                 self.graphs[key] = self._capture(region)
                 self.counts["captures"][which] += 1
             else:
@@ -149,33 +162,40 @@ class UpdateGraph:
         stats = self.stats[which]
         return {k: stats[i, :epochs].mean() for i, k in enumerate(self.keys[which])}
 
-    def _draw(self, replay):
-        """The epoch's draws, eagerly and in the eager step's order, into
-        the static buffers."""
-        cfg, gen = self.cfg, self.generator
+    def _draw(self, replay, given):
+        """The epoch's draws into the static buffers: ``given(part)`` where
+        it is not None, else drawn in the step's order."""
+        cfg, gen, dev = self.cfg, self.generator, self.epoch.device
+        as_index = lambda x: torch.as_tensor(x, device=dev).long()
+        pick = lambda part, draw: draw() if given(part) is None else given(part)
         if cfg.episodic:
-            torch._foreach_copy_(list(self.episodes),
-                                 list(rb.episode_draws(replay, cfg.batch_size, gen)))
+            # batch_size counts whole episodes (reference default.yaml:21)
+            drawn = pick("_episodes", lambda: rb.episode_draws(replay, cfg.batch_size, gen))
+            torch._foreach_copy_(list(self.episodes), [as_index(d) for d in drawn])
             return
         if self.lane_idx is not None:
-            self.lane_idx.copy_(rb._lane_choice(replay.data.reward.shape[1], cfg.update_lanes,
-                                                gen, self.lane_idx.device))
+            self.lane_idx.copy_(as_index(pick("_lanes", lambda: rb._lane_choice(
+                replay.data.reward.shape[1], cfg.update_lanes, gen, dev))))
         if replay.capacity != cfg.batch_size:
-            self.start.copy_(rb.window_start(replay, cfg.batch_size, gen))
+            self.start.copy_(as_index(pick(
+                "_starts", lambda: rb.window_start(replay, cfg.batch_size, gen))))
 
-    def _region(self, which, oldest):
-        """One update step: the gather from the static draws, the step, and
-        its stats into column ``epoch`` of the stats buffer."""
+    def _region(self, which, oldest, loss_draws=None):
+        """One update step: the gather from the static draws, the step (with
+        ``loss_draws``, the loss's own where given), and its stats into
+        column ``epoch`` of the stats buffer."""
         tr, cfg = self.trainer, self.cfg
         ring = rb.ReplayState(data=self.ring, ptr=0, size=0)
-        if cfg.episodic:
-            batch = rb.sample_episodes(ring, cfg.batch_size, draws=self.episodes)
-        else:
-            batch = rb.sample_window(ring, cfg.batch_size, cfg.update_lanes,
-                                     lane_idx=self.lane_idx, start=self.start, oldest=oldest)
+        with profiling.span("update.sample"):
+            if cfg.episodic:
+                batch = rb.sample_episodes(ring, cfg.batch_size, draws=self.episodes)
+            else:
+                batch = rb.sample_window(ring, cfg.batch_size, cfg.update_lanes,
+                                         lane_idx=self.lane_idx, start=self.start,
+                                         oldest=oldest)
         with _aliased(modules(self.algo)):
             out = tr._update_step(self.algo, batch.map(tr._upcast), which, None,
-                                  self.generator, None)
+                                  self.generator, loss_draws)
         self.keys.setdefault(which, list(out))
         vals = torch.stack([out[k] for k in self.keys[which]])
         if which not in self.stats:

@@ -23,6 +23,9 @@ XLA's collectives; here every rank seeds one generator alike and
 * the chunk's rollout stats are averaged over the ranks, and the eval runs
   whole on every rank.
 
+Every step runs uncaptured (``shard``): the rollout's gate and the
+update's sums are all-reduces.  The update keeps its own loop here.
+
 Each loss of learn/losses.py and algos/*.py is a mean over the batch's
 rows, so the shares sum to it.  What is not a per-row mean is reduced on
 its own: ``batchnorm``'s mean and std (sums over all ranks' rows), and
@@ -42,6 +45,7 @@ import torch.distributed as dist
 
 from mapdn_torch.learn import replay as rb
 from mapdn_torch.learn.trainer import PGTrainer, TrainerCarry, _mean_stats
+from mapdn_torch.utils import profiling
 from mapdn_torch.utils.lanes import LaneShard
 
 BACKENDS = ("nccl", "gloo")
@@ -121,6 +125,38 @@ class ShardedPGTrainer(PGTrainer):
     def _lane_context(self):
         return self._lanes.active()
 
+    def _update_epochs(self, algo, replay, generator, *, which, epochs, draws):
+        """``epochs`` optimizer steps on this rank's rows of freshly sampled
+        windows, uncaptured (``PGTrainer._update_epochs``).  A ring whose
+        capacity equals batch_size without lane subsampling gives the same
+        window every epoch: sampled once."""
+        cfg = self.cfg
+        if epochs <= 0:
+            return {}
+        # every epoch here runs under this trainer's lane shard, also where
+        # a stubbed ``lanes.current`` hides it from the reason test
+        reason = self._update_eager_reason(algo, which, draws) or "shard"
+        subsampling = cfg.update_lanes is not None and cfg.update_lanes < cfg.n_envs
+        fixed = (not cfg.episodic and replay.capacity == cfg.batch_size
+                 and not subsampling)
+
+        def sample(e):
+            with profiling.span("update.sample"):
+                return self._sample_batch(replay, generator, which, e, draws)
+
+        fixed_batch = sample(0) if fixed else None
+        epoch_draws = lambda key, e: None if draws.get(key) is None else draws[key][e]
+        stats = []
+        for e in range(epochs):
+            self._update_counts["eager"][reason] += 1
+            profiling.count("train.eager_updates", 1)
+            batch, shard = fixed_batch or sample(e)
+            with shard.active():
+                stats.append(self._update_step(
+                    algo, batch.map(self._upcast), which, shard, generator,
+                    epoch_draws(which + "_loss", e)))
+        return _mean_stats(stats)
+
     def _sample_batch(self, replay, generator, which, e, draws):
         """The epoch's lanes (or episodes) drawn over the global lanes, as
         the single process draws them (or as ``draws`` gives them); this
@@ -175,8 +211,9 @@ class ShardedPGTrainer(PGTrainer):
             i += t.numel()
         return out
 
-    def _rollout_stats(self, stat_list):
-        stats = _mean_stats(stat_list)
+    def _rollout_stats(self, stats):
+        """This rank's lane means as its share of the global lanes', summed
+        over the ranks."""
         keys = list(stats)
         summed = self._sum_over_ranks(
             [self._lanes.share(torch.as_tensor(stats[k], device=self.device)) for k in keys])

@@ -39,7 +39,7 @@ SPANS = (
     "train.chunk",          # PGTrainer._train_chunk
     "train.rollout_step",   # PGTrainer._rollout_step; in train.chunk
     "train.policy",         # the rollout's get_actions; in train.rollout_step
-    "train.ring_write",     # the transitions' stack and ring write; in train.chunk
+    "train.ring_write",     # an uncaptured step's ring row; in train.chunk
     "train.value_fill",     # the ring's (or episode's) rollout values; in train.chunk
     "train.update",         # PGTrainer._update_phase; in train.chunk or alone
     "update.sample",        # an epoch's batch; in train.update
@@ -60,7 +60,7 @@ SPANS = (
 )
 # every counter: lanes x solves, the solves' Newton iterations summed over
 # their lanes, the lanes each env step terminated, the trainer's rollout
-# steps and update steps that ran eagerly (all of them while a tracer is
+# steps and update steps that ran uncaptured (all of them while a tracer is
 # active: a step replayed as a CUDA graph calls no Python, so it opens no
 # span), the soft target updates
 COUNTERS = ("pf.lane_solves", "pf.nr_iters", "env.terminated_lanes", "train.eager_steps",

@@ -181,7 +181,7 @@ def parts(args):
         out["replay_and_read_ms"] = 1e3 * (time.perf_counter() - t0) / n
         t0 = time.perf_counter()
         for _ in range(n):
-            tr._step_eager_reason(carry)
+            tr._eager_reason(carry, None)
         out["engagement_test_us"] = 1e6 * (time.perf_counter() - t0) / n
         c = tr.carry
         torch.cuda.synchronize()

@@ -1,14 +1,14 @@
 """The trainer's rollout step as CUDA graphs (mapdn_torch/learn/rollout_graph.py).
 
-On the CPU: which steps run eagerly and why (``PGTrainer._eager_reason``,
+On the CPU: which steps run uncaptured and why (``PGTrainer._eager_reason``,
 tallied by ``PGTrainer.rollout_counts`` and, under a tracer, by the
-``train.eager_steps`` counter); the eager chunk bit for bit the code path it
-had before the graphs, in both ring modes; and the graph path's own logic
-(static buffers, ring rows, stats columns, the reset branch and its patch
-of ``next_state``) bit for bit the eager chunk, with each "capture" standing
-in for a graph whose replay runs the captured code again, and with host
-reads trapped in it for the algorithms that declare their rollout
-capturable.
+``train.eager_steps`` counter); the uncaptured chunk bit for bit the code
+path it had before the graphs (its eager chunk, carried here), in both ring
+modes; and the graph path's own logic (static buffers, ring rows, stats
+columns, the reset branch and its patch of ``next_state``) bit for bit the
+uncaptured chunk, with each "capture" standing in for a graph whose replay
+runs the captured code again, and with host reads trapped in it for the
+algorithms that declare their rollout capturable.
 
 On a GPU (``cuda``, skipped elsewhere): graphed against eager from one seed,
 bit for bit: case33 MAPPO at 512 lanes in both ring modes, case33 MADDPG
@@ -19,6 +19,7 @@ neither JAX nor mapdn_tpu:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_rollout_graph.py -q
 """
+import collections
 import dataclasses
 import types
 
@@ -30,8 +31,9 @@ from mapdn_torch.algos import make_model
 from mapdn_torch.algos.registry import MODEL_REGISTRY
 from mapdn_torch.envs import EnvConfig, make_env
 from mapdn_torch.envs.voltage_control import _lane_where, select_state
+from mapdn_torch.learn import replay as rb
 from mapdn_torch.learn import rollout_graph
-from mapdn_torch.learn.trainer import PGTrainer
+from mapdn_torch.learn.trainer import PGTrainer, _mean_stats
 from mapdn_torch.parallel import ShardedPGTrainer
 from mapdn_torch.pf import fused_nr
 from mapdn_torch.utils import lanes, profiling
@@ -150,7 +152,7 @@ def test_cpu_steps_run_eager_and_are_tallied():
     assert counts["eager"] == dict(cpu=2 * CHUNK, draws=0, shard=0, tracer=0, algorithm=0,
                                    solver=0, wrapped=0)
     assert counts["captures"] == counts["replays"] == {"step": 0, "reset": 0}
-    assert tr._graph is None
+    assert tr._graph.graphs == {}
 
 
 def test_graph_path_tallies_captures_and_replays(direct):
@@ -162,6 +164,39 @@ def test_graph_path_tallies_captures_and_replays(direct):
     assert counts["replays"]["step"] == 3 * CHUNK - 1
     # EPISODE-step episodes: lanes terminate on 2 of every 5 steps at least
     assert counts["replays"]["reset"] >= 3 * CHUNK // EPISODE - 1
+
+
+def test_steps_with_draws_run_uncaptured_and_the_rest_replay(direct):
+    """Chunks in which only some steps carry explicit draws (their action
+    noise): those steps run uncaptured, tallied under ``draws``, and the
+    others replay the graphs; three such chunks give the stats, the carry,
+    the ring and the generator of a run with no graph (a tracer keeps
+    every step of it uncaptured)."""
+    with_draws = (0, 5, 6, CHUNK - 1)
+    noise = torch.Generator().manual_seed(5)
+    shape = (L, _build().model.n, 1)
+    draws = [{"steps": [{"action_noise": torch.randn(shape, generator=noise)}
+                        if t in with_draws else None for t in range(CHUNK)]}
+             for _ in range(3)]
+
+    def run(trainer):
+        stats = []
+        for chunk in draws:
+            trainer.carry, st = trainer._train_chunk(trainer.carry, chunk)
+            stats.append({k: float(v) for k, v in st.items()})
+        return stats, _snapshot(trainer)
+
+    ref = _build()
+    with profiling.tracing(profiling.Tracer(device="cpu")):
+        want = run(ref)
+    assert ref.rollout_counts()["eager"]["tracer"] == 3 * (CHUNK - len(with_draws))
+    tr = _build()
+    _same_runs(want, run(tr))
+    counts = tr.rollout_counts()
+    n = 3 * len(with_draws)
+    assert counts["eager"] == dict(cpu=0, draws=n, shard=0, tracer=0, algorithm=0, solver=0,
+                                   wrapped=0)
+    assert counts["captures"]["step"] == 1 and counts["replays"]["step"] == 3 * CHUNK - n - 1
 
 
 @pytest.mark.parametrize("reason", ["draws", "tracer", "algorithm", "solver"])
@@ -366,11 +401,32 @@ def _parent_auto_reset_step(self, states, sgen_actions, generator=None, add_nois
         global_state=_lane_where(sel, self.get_state(fresh), out.global_state))
 
 
+def _parent_eager_chunk(self, carry, step_draws):
+    """``PGTrainer._eager_chunk`` as it was before the rollout graphs, less
+    its tally and spans: the tail of the chunk's transitions stacked and
+    written once where the chunk refills the ring, else each step's
+    written as it comes."""
+    tail = collections.deque(maxlen=carry.replay.capacity)
+    roll_stats = []
+    for t in range(self._chunk_len):
+        carry, trans, stats = self._rollout_step(carry, step_draws[t])
+        roll_stats.append(stats)
+        if self._stack_emit:
+            tail.append(trans)
+        else:
+            carry.replay = rb.add(carry.replay, trans)
+    if self._stack_emit:
+        stacked = tail[0].map(lambda *xs: torch.stack(xs), *list(tail)[1:])
+        carry.replay = rb.add_many(carry.replay, stacked)
+    return carry, _mean_stats(roll_stats)
+
+
 @pytest.mark.parametrize("ring_steps", [8, 16], ids=["stacked_ring_write",
                                                      "per_step_ring_write"])
 def test_eager_chunk_is_bit_identical_to_the_code_path_before_graphs(monkeypatch,
                                                                      ring_steps):
     old = _build(ring_steps=ring_steps, batch_size=8)
+    monkeypatch.setattr(old, "_rollout_chunk", types.MethodType(_parent_eager_chunk, old))
     monkeypatch.setattr(old, "_rollout_step_body",
                         types.MethodType(_parent_rollout_step_body, old))
     monkeypatch.setattr(old.env, "batched_auto_reset_step",
@@ -570,7 +626,7 @@ def test_torch_solver_trains_eagerly_on_the_card(cuda):
     torch.cuda.synchronize()
     counts = tr.rollout_counts()
     assert counts["eager"]["solver"] == 2 * 20 == sum(counts["eager"].values())
-    assert counts["captures"] == {"step": 0, "reset": 0} and tr._graph is None
+    assert counts["captures"] == {"step": 0, "reset": 0} and tr._graph.graphs == {}
     assert all(torch.isfinite(torch.as_tensor(v)).all() for st in stats for v in st.values())
 
 

@@ -160,7 +160,7 @@ def test_chunk_traced_is_bit_identical_and_counts_match(monkeypatch, ring_steps)
     assert calls("host.sync") == counted.reads
     assert counted.reads >= CHUNK           # each step's auto-reset gate
     assert counted.starts == 3              # each window start, on the device
-    assert calls("train.ring_write") == (1 if on._stack_emit else CHUNK)
+    assert calls("train.ring_write") == CHUNK   # each step's row, in both modes
     assert calls("train.value_fill") == calls("train.update") == 1
     assert calls("update.sample") == 3
     assert calls("update.loss") == calls("update.backward") == calls("update.optimizer") == 3

@@ -1,14 +1,14 @@
 """The trainer's update steps as CUDA graphs (mapdn_torch/learn/update_graph.py).
 
-On the CPU: which update steps run eagerly and why
+On the CPU: which update steps run uncaptured and why
 (``PGTrainer._update_eager_reason``, tallied by ``PGTrainer.update_counts``
 and, under a tracer, by the ``train.eager_updates`` counter); the window
-start a 0-d device tensor, the same number the host read gave; the eager
-update bit for bit the code path it had before the graphs; and the graph
-path's own logic (static draws, the gather from them, the stats columns)
-bit for bit the eager update, with each "capture" standing in for a graph
-whose replay runs the captured code again, and with host reads trapped in
-it.
+start a 0-d device tensor, the same number the host read gave; the
+uncaptured update bit for bit the code path it had before the graphs (its
+eager loop and sampling, carried here); and the graph path's own logic
+(static draws, the gather from them, the stats columns) bit for bit the
+uncaptured update, with each "capture" standing in for a graph whose
+replay runs the captured code again, and with host reads trapped in it.
 
 On a GPU (``cuda``, skipped elsewhere): the update phase graphed against
 eager from one seed, bit for bit (parameters, optimizer ``nu``, every
@@ -72,7 +72,7 @@ def test_cpu_update_steps_run_eager_and_are_tallied():
     counts = tr.update_counts()
     assert counts["eager"] == dict(cpu=2 * 3, draws=0, shard=0, tracer=0, algorithm=0,
                                    wrapped=0)
-    assert _no_graph(counts) and tr._update_graph is None
+    assert _no_graph(counts) and tr._update_graph.graphs == {}
 
 
 @pytest.mark.parametrize("reason", ["draws", "tracer", "algorithm"])
@@ -121,7 +121,7 @@ def test_shard_update_steps_run_eager(direct, tmp_path):
                                     for s in starts)
 
 
-@pytest.mark.parametrize("where", ["trainer._update_step", "trainer._sample_batch",
+@pytest.mark.parametrize("where", ["trainer._update_step", "trainer._upcast",
                                    "trainer._update_epochs", "model.get_loss",
                                    "model.policy", "value.forward_hook"])
 def test_wrapped_update_steps_run_eager_and_the_graphs_resume(direct, where):
@@ -239,6 +239,18 @@ def _parent_sample_window(state, batch_size, lanes=None, generator=None, lane_id
     return rb.subsample_lanes(window, lanes, lane_idx=lane_idx) if subsample else window
 
 
+def _parent_sample_batch(self, replay, generator, which, e, draws):
+    """``PGTrainer._sample_batch`` as it was before the update graphs."""
+    cfg = self.cfg
+    epoch_draws = lambda key: None if draws.get(key) is None else draws[key][e]
+    if cfg.episodic:
+        return rb.sample_episodes(replay, cfg.batch_size, generator,
+                                  draws=epoch_draws(which + "_episodes")), None
+    return rb.sample_window(replay, cfg.batch_size, cfg.update_lanes,
+                            generator=generator, lane_idx=epoch_draws(which + "_lanes"),
+                            start=epoch_draws(which + "_starts")), None
+
+
 def _parent_update_epochs(self, algo, replay, generator, *, which, epochs, draws):
     """``PGTrainer._update_epochs`` as it was before the update graphs."""
     cfg = self.cfg
@@ -246,7 +258,7 @@ def _parent_update_epochs(self, algo, replay, generator, *, which, epochs, draws
         return {}
     subsampling = cfg.update_lanes is not None and cfg.update_lanes < cfg.n_envs
     fixed = (not cfg.episodic and replay.capacity == cfg.batch_size and not subsampling)
-    sample = lambda e: self._sample_batch(replay, generator, which, e, draws)
+    sample = lambda e: _parent_sample_batch(self, replay, generator, which, e, draws)
     fixed_batch = sample(0) if fixed else None
     epoch_draws = lambda key, e: None if draws.get(key) is None else draws[key][e]
     stats = []
@@ -333,8 +345,10 @@ def test_graph_logic_is_bit_identical_to_eager(direct, monkeypatch, alg, ring_st
 
 def test_the_whole_ring_is_read_in_place(direct):
     """Where the window is the whole ring, the graphs read the ring itself
-    (no copy of it), which the eager ring write keeps in place."""
+    (no copy of it), which the rollout's ring write keeps in place (its
+    first chunk puts the rollout graph's ring in the carry)."""
     tr = _build(ring_steps=8, batch_size=8)
+    tr.run_episode()
     ring = tr.carry.replay.data
     tr.run_episode()
     tr.run_episode()
