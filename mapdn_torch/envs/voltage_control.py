@@ -157,6 +157,9 @@ class VoltageControlEnv:
         # iteration unless its iterations are fixed
         self.solver_capturable = (solver_path(grid.n_bus, cfg.pf_backend) != "torch"
                                   or cfg.pf_fixed_iter is not None)
+        # a tester's eval graphs (learn/eval_graph.py) while its loop has
+        # engaged them: the noiseless steps go through them
+        self._eval_graph = None
 
         dev, dt = self.device, self.dtype
         line_mask = grid.is_line.detach().cpu().double().numpy()
@@ -385,7 +388,16 @@ class VoltageControlEnv:
 
     def step(self, state: EnvState, sgen_actions, generator=None,
              add_noise=True, noise=None) -> StepOutput:
-        """One transition of every lane; ``sgen_actions`` (L, n_sgen)."""
+        """One transition of every lane; ``sgen_actions`` (L, n_sgen).  A
+        noiseless step goes through the tester's eval graphs while a tester
+        loop has engaged them (it replays their step, or runs
+        :meth:`_step_body` uncaptured); any other runs :meth:`_step_body`."""
+        graph = self._eval_graph
+        if graph is not None and not add_noise and generator is None and noise is None:
+            return graph.step(state, sgen_actions)
+        return self._step_body(state, sgen_actions, generator, add_noise, noise)
+
+    def _step_body(self, state, sgen_actions, generator, add_noise, noise):
         with profiling.span("env.step"):
             cfg = self.cfg
             sgen_actions = torch.as_tensor(sgen_actions, device=self.device).to(self.dtype)

@@ -82,16 +82,19 @@ def _tensors(module):
     return [(t, t.data_ptr()) for t in list(module.parameters()) + list(module.buffers())]
 
 
-def replaced(trainer, methods, modules):
+def replaced(trainer, methods, modules, entry=()):
     """Whether a callable that a captured region runs through is not the
     program's own: one of the trainer's ``methods`` or any method of the
-    env or the model replaced on the instance, or one of ``modules`` (or a
-    module inside one) whose ``forward`` was replaced or hooked."""
+    env or the model replaced on the instance (other than the names in
+    ``entry``, which call into the region from outside it), or one of
+    ``modules`` (or a module inside one) whose ``forward`` was replaced or
+    hooked."""
     if any(name in vars(trainer) for name in methods):
         return True
     for obj in (trainer.env, trainer.model):
         cls = type(obj)
-        if any(callable(v) and callable(getattr(cls, k, None)) for k, v in vars(obj).items()):
+        if any(callable(v) and callable(getattr(cls, k, None)) and k not in entry
+               for k, v in vars(obj).items()):
             return True
     hooks = torch.nn.modules.module
     if hooks._global_forward_hooks or hooks._global_forward_pre_hooks:
@@ -111,20 +114,26 @@ def wrapped(trainer, policy):
 
 
 def capture(region, generator, pool, stream):
-    """The CUDA graph of ``region``, captured on ``stream`` into ``pool``
-    (None: a new one) with ``generator`` registered.  cuBLAS's workspaces
-    are released before it, so that the capture stream's, made in the
-    capture (one for each thread that multiplies: a backward's too), take
-    the place of the current stream's in the allocated memory rather than
-    adding to its peak, and after it, when the capture stream's go back to
-    the pool."""
+    """(the CUDA graph of ``region``, the kernel launches its capture
+    counted), captured on ``stream`` into ``pool`` (None: a new one) with
+    ``generator`` registered (None: a region that draws nothing).  The
+    launches are taken back from the tallies, for each replay to credit
+    (:func:`_credit`).  cuBLAS's workspaces are released before the
+    capture, so that the capture stream's, made in it (one for each thread
+    that multiplies: a backward's too), take the place of the current
+    stream's in the allocated memory rather than adding to its peak, and
+    after it, when the capture stream's go back to the pool."""
     graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(generator)
+    if generator is not None:
+        graph.register_generator_state(generator)
     _release_workspaces()
+    before = _launches()
     with torch.cuda.graph(graph, pool=pool, stream=stream):
         region()
+    made = tuple(b - a for a, b in zip(before, _launches()))
+    _credit(*(-m for m in made))
     _release_workspaces()
-    return graph
+    return graph, made
 
 
 class _Buffers:
@@ -326,9 +335,6 @@ class RolloutGraph:
         replay)."""
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.device)
-        before = _launches()
-        graph = capture(region, self.generator, self.pool, self.stream)
-        made = tuple(b - a for a, b in zip(before, _launches()))
-        _credit(*(-m for m in made))
+        graph, made = capture(region, self.generator, self.pool, self.stream)
         self.pool = graph.pool()
         return graph, made

@@ -206,6 +206,6 @@ class UpdateGraph:
     def _capture(self, region):
         if self.stream is None:
             self.stream = torch.cuda.Stream(self.ring.reward.device)
-        graph = capture(region, self.generator, self.pool, self.stream)
+        graph, _ = capture(region, self.generator, self.pool, self.stream)
         self.pool = graph.pool()
         return graph

@@ -62,9 +62,9 @@ SPANS = (
 # their lanes, the lanes each env step terminated, the trainer's rollout
 # steps and update steps that ran uncaptured (all of them while a tracer is
 # active: a step replayed as a CUDA graph calls no Python, so it opens no
-# span), the soft target updates
+# span), the soft target updates, the tester's steps that ran uncaptured
 COUNTERS = ("pf.lane_solves", "pf.nr_iters", "env.terminated_lanes", "train.eager_steps",
-            "train.eager_updates", "train.target_updates")
+            "train.eager_updates", "train.target_updates", "eval.eager_steps")
 
 _ACTIVE = None
 _NO_SPAN = contextlib.nullcontext()

@@ -226,8 +226,10 @@ def test_eager_steps_counter_counts_every_eager_step():
     with profiling.tracing(tracer):
         tr.run_episode()
     counters = tracer.summary()["counters"]
-    # MAPPO's episode crosses no target_update_freq boundary: no soft update
-    assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates"}
+    # MAPPO's episode crosses no target_update_freq boundary (no soft
+    # update), and runs no tester
+    assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates",
+                                                       "eval.eager_steps"}
     assert counters["train.eager_steps"] == CHUNK == tr.rollout_counts()["eager"]["cpu"]
 
 

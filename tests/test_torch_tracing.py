@@ -149,8 +149,10 @@ def test_chunk_traced_is_bit_identical_and_counts_match(monkeypatch, ring_steps)
     _check_tree(tracer)
     out = tracer.summary()
     spans, counters = out["spans"], out["counters"]
-    # a chunk alone fires no soft target update (PGTrainer._train_episode does)
-    assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates"}
+    # a chunk alone fires no soft target update (PGTrainer._train_episode
+    # does) and runs no tester
+    assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates",
+                                                       "eval.eager_steps"}
     calls = lambda name: spans.get(name, {"calls": 0})["calls"]
     assert calls("train.chunk") == 1
     assert calls("train.rollout_step") == calls("train.policy") == CHUNK
@@ -187,7 +189,7 @@ def test_target_and_gather_spans_of_an_off_policy_ring():
     _check_tree(tracer)
     out = tracer.summary()
     spans, counters = out["spans"], out["counters"]
-    assert set(counters) == set(profiling.COUNTERS)
+    assert set(counters) == set(profiling.COUNTERS) - {"eval.eager_steps"}
     assert spans["train.chunk"]["calls"] == 2
     assert spans["update.target"]["calls"] == 2 * tr.cfg.value_update_epochs
     assert spans["replay.gather"]["calls"] == spans["update.sample"]["calls"] == 2 * 3
@@ -212,8 +214,10 @@ def test_tester_day_traced(monkeypatch):
     steps = len(rec["bus_voltage"]) - 1
     assert steps == EPISODE - 1
     _check_tree(tracer)
-    spans = tracer.summary()["spans"]
+    out = tracer.summary()
+    spans = out["spans"]
     assert spans["eval.step"]["calls"] == spans["eval.act"]["calls"] == steps
+    assert out["counters"]["eval.eager_steps"] == steps == tester.step_counts()["eager"]["cpu"]
     assert spans["env.step"]["calls"] == steps
     assert spans["env.reset"]["calls"] == 1       # manual_reset's attempt, at the top
     assert spans["host.sync"]["calls"] == steps + 1
