@@ -142,9 +142,10 @@ class MARLModel:
     # set only where that was checked
     rollout_capturable = False
     # whether an update step (the window's gather, get_loss, the gradients
-    # and the optimizer step) draws nothing and reads no host value, so that
-    # the trainer may capture it once as a CUDA graph and replay it for every
-    # epoch (learn/update_graph.py); set only where that was checked
+    # and the optimizer step) reads no host value and draws nothing but the
+    # noise its loss declares (``loss_noise``), so that the trainer may
+    # capture it once as a CUDA graph and replay it for every epoch
+    # (learn/update_graph.py); set only where that was checked
     update_capturable = False
 
     def __init__(self, cfg, device=None, param_dtype=torch.float32):
@@ -306,6 +307,15 @@ class MARLModel:
         if self.cfg.reward_normalisation:
             reward = batchnorm(reward)
         return flat.replace(reward=reward)
+
+    def loss_noise(self, which):
+        """The names of the standard normals, each of the window's (rows, n,
+        act) action shape, that ``get_loss`` draws in an update step of
+        ``which`` (its ``draws`` keys), in the order it draws them: the
+        update steps draw them before the loss and hand them in
+        (learn/update_graph.py).  None by default: the loss draws nothing,
+        or draws for itself and is not ``update_capturable``."""
+        return ()
 
     def get_loss(self, state: AlgoState, batch: Transition, avail, *,
                  policy=True, value=True, generator=None, draws=None):

@@ -8,7 +8,10 @@ attention regulariser is added to the policy loss (reference maac.py:118).
 The loss draws exploring actions twice: from the policy,
 ``draws["policy_noise"]``, and from the target policy,
 ``draws["next_noise"]``, each (b, n, a) where given (the JAX package's
-keys k1 and k2).
+keys k1 and k2).  It declares both (``loss_noise``), so that the update
+steps draw them before the loss and the step replays as a CUDA graph;
+the rollout runs the base class's ``get_actions``, whose Gaussian head
+reads no host value.
 """
 from __future__ import annotations
 
@@ -17,9 +20,13 @@ import torch
 from mapdn_torch.algos.base import MARLModel
 from mapdn_torch.learn.sampling import batchnorm, draw_normal
 from mapdn_torch.nets.critics import AttentionCritic
+from mapdn_torch.utils import profiling
 
 
 class MAAC(MARLModel):
+    rollout_capturable = True
+    update_capturable = True
+
     def __init__(self, cfg, device=None, param_dtype=torch.float32):
         if not cfg.shared_params:
             raise NotImplementedError(
@@ -42,7 +49,23 @@ class MAAC(MARLModel):
 
     def value(self, module, obs, act):
         """(q (b, n), attend_reg (n,))."""
-        return module(obs, act)
+        with profiling.span("update.critic"):
+            return module(obs, act)
+
+    def loss_noise(self, which):
+        """The policy's exploring actions in both losses, then the target
+        policy's in the value loss (:meth:`get_loss`'s order)."""
+        return {"value": ("policy_noise", "next_noise"),
+                "policy": ("policy_noise",)}.get(which, ())
+
+    def next_values(self, state, b, avail, noise):
+        """The bootstrap's Q: the target critic on the next obs and the
+        target policy's exploring actions there (reference maac.py:109-113)."""
+        with torch.no_grad(), profiling.span("update.target"):
+            _, next_actions, _, _, _ = self.get_actions(
+                state.target_policy, b.next_state, b.hid, status="train",
+                exploration=True, avail=avail, noise=noise)
+            return self.value(state.target_value, b.next_state, next_actions)[0]
 
     def get_loss(self, state, batch, avail, *, policy=True, value=True,
                  generator=None, draws=None):
@@ -73,12 +96,8 @@ class MAAC(MARLModel):
                 policy_loss = -advantages.detach() * log_prob_a
             policy_loss = torch.mean(policy_loss + attn_reg[None, :])
         if value:
-            with torch.no_grad():
-                next_noise = draw_normal(draws.get("next_noise"), shape, b.state, generator)
-                _, next_actions, _, _, _ = self.get_actions(
-                    state.target_policy, b.next_state, b.hid, status="train",
-                    exploration=True, avail=avail, noise=next_noise)
-                next_values, _ = self.value(state.target_value, b.next_state, next_actions)
+            next_noise = draw_normal(draws.get("next_noise"), shape, b.state, generator)
+            next_values = self.next_values(state, b, avail, next_noise)
             values, _ = self.value(state.value, b.state, b.action)
             soft = 1.0 if cfg.soft else 0.0
             returns = (b.reward + cfg.gamma * (1.0 - b.done[:, None]) * next_values

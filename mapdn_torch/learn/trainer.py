@@ -620,5 +620,8 @@ class PGTrainer:
             return {k: float(v) for k, v in stats.items()}
 
     def setup(self, seed=0):
+        """A fresh carry from ``seed``; the old carry (its ring) is dropped
+        first, so that the two are never held together."""
+        self.carry = None
         self.carry = self.init_carry(seed)
         return self

@@ -12,18 +12,21 @@ uncaptured, with the same work and results.
 
 A step reads the algorithm's parameters and optimizer state and the ring
 as they are, and updates the parameters and the state in place.  What the
-step draws before it reads the ring (``sample_window``'s lanes, then
-``replay.window_start``; ``sample_episodes``' slots and lanes) is drawn
+step draws (``sample_window``'s lanes, then ``replay.window_start``;
+``sample_episodes``' slots and lanes; then the standard normals its loss
+declares, ``model.loss_noise(which)``, by :func:`loss_noise`) is drawn
 before each step, outside the graph, by those functions in that order
-(or given explicitly), and copied into static index buffers; the gather
-from those buffers, with the ring's oldest row held on the device, is in
-the step.
-Where the window is the whole ring (``capacity == batch_size``) the step
-reads the ring itself, so no copy of it is made, and its oldest row, a
-host value there, picks the graph.  The losses of the graphed algorithms
-draw nothing.  Each step writes its stats into its column of a stats
-buffer from an epoch index held on the device, so that their means over
-the epochs add in the order that ``trainer._mean_stats`` adds them.
+(or given explicitly), and copied into static buffers; the gather from
+the index buffers, with the ring's oldest row held on the device, is in
+the step, and the loss takes its noise from the noise buffers as its
+``draws``.  An epoch run uncaptured draws the same numbers in the same
+order, so a graphed epoch and an uncaptured one are the same, bit for
+bit.  Where the window is the whole ring (``capacity == batch_size``)
+the step reads the ring itself, so no copy of it is made, and its oldest
+row, a host value there, picks the graph.  Each step writes its stats
+into its column of a stats buffer from an epoch index held on the
+device, so that their means over the epochs add in the order that
+``trainer._mean_stats`` adds them.
 
 Capture follows ``learn/rollout_graph.py``: the carry's generator is
 registered with each graph, the warm-up is a real epoch run uncaptured on the
@@ -56,6 +59,14 @@ from mapdn_torch.utils import profiling
 _TRANSITION = tuple(f.name for f in dataclasses.fields(Transition))
 _MODULES = ("policy", "value", "target_policy", "target_value", "mixer", "target_mixer")
 _OPT = ("policy_opt", "value_opt", "mixer_opt")
+
+
+def loss_noise(names, shape, like, generator):
+    """{name: standard normals of ``shape``}, drawn from ``generator`` in
+    the order of ``names``, in ``like``'s dtype on its device: a new
+    tensor each at every call, read back by nothing."""
+    return {k: torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+            for k in names}
 
 
 def modules(algo):
@@ -112,6 +123,13 @@ class UpdateGraph:
             self.lane_idx = torch.zeros(cfg.update_lanes, **i64)
         self.start, self.oldest = torch.zeros((), **i64), torch.zeros((), **i64)
         self.epoch = torch.zeros(1, **i64)
+        # the loss's noise, one static buffer a name a ``which``, of the
+        # window's (rows, n, act) action shape
+        lanes = (cfg.batch_size if cfg.episodic else self.ring.reward.shape[1]
+                 if self.lane_idx is None else cfg.update_lanes)
+        steps = self.ring.reward.shape[1] if cfg.episodic else cfg.batch_size
+        self.noise_shape = (steps * lanes,) + tuple(self.ring.action.shape[-2:])
+        self.noise = {}
         epochs = (cfg.value_update_epochs, cfg.policy_update_epochs, trainer._mixer_epochs())
         self.width = -(-max(*epochs, 1) // _ROW_ALIGN) * _ROW_ALIGN
         self.keys, self.stats = {}, {}
@@ -145,7 +163,7 @@ class UpdateGraph:
         self.epoch.zero_()
         for e in range(epochs):
             given = lambda part: None if draws.get(which + part) is None else draws[which + part][e]
-            self._draw(replay, given)
+            self._draw(which, replay, given)
             if reason is not None:
                 self.counts["eager"][reason] += 1
                 profiling.count("train.eager_updates", 1)
@@ -162,9 +180,11 @@ class UpdateGraph:
         stats = self.stats[which]
         return {k: stats[i, :epochs].mean() for i, k in enumerate(self.keys[which])}
 
-    def _draw(self, replay, given):
-        """The epoch's draws into the static buffers: ``given(part)`` where
-        it is not None, else drawn in the step's order."""
+    def _draw(self, which, replay, given):
+        """The epoch's draws of a step of ``which`` into the static buffers:
+        ``given(part)`` where it is not None, else drawn in the step's
+        order; where the loss's draws are given, they go to the loss as
+        they are and none is drawn for it."""
         cfg, gen, dev = self.cfg, self.generator, self.epoch.device
         as_index = lambda x: torch.as_tensor(x, device=dev).long()
         pick = lambda part, draw: draw() if given(part) is None else given(part)
@@ -172,19 +192,28 @@ class UpdateGraph:
             # batch_size counts whole episodes (reference default.yaml:21)
             drawn = pick("_episodes", lambda: rb.episode_draws(replay, cfg.batch_size, gen))
             torch._foreach_copy_(list(self.episodes), [as_index(d) for d in drawn])
-            return
-        if self.lane_idx is not None:
-            self.lane_idx.copy_(as_index(pick("_lanes", lambda: rb._lane_choice(
-                replay.data.reward.shape[1], cfg.update_lanes, gen, dev))))
-        if replay.capacity != cfg.batch_size:
-            self.start.copy_(as_index(pick(
-                "_starts", lambda: rb.window_start(replay, cfg.batch_size, gen))))
+        else:
+            if self.lane_idx is not None:
+                self.lane_idx.copy_(as_index(pick("_lanes", lambda: rb._lane_choice(
+                    replay.data.reward.shape[1], cfg.update_lanes, gen, dev))))
+            if replay.capacity != cfg.batch_size:
+                self.start.copy_(as_index(pick(
+                    "_starts", lambda: rb.window_start(replay, cfg.batch_size, gen))))
+        names = self.model.loss_noise(which)
+        if names and given("_loss") is None:
+            drawn = loss_noise(names, self.noise_shape, self.ring.action, gen)
+            bufs = self.noise.get(which)
+            if bufs is None:
+                bufs = self.noise[which] = {k: torch.empty_like(v) for k, v in drawn.items()}
+            torch._foreach_copy_(list(bufs.values()), list(drawn.values()))
 
     def _region(self, which, oldest, loss_draws=None):
         """One update step: the gather from the static draws, the step (with
-        ``loss_draws``, the loss's own where given), and its stats into
-        column ``epoch`` of the stats buffer."""
+        ``loss_draws``, the loss's own where given, else its noise buffers),
+        and its stats into column ``epoch`` of the stats buffer."""
         tr, cfg = self.trainer, self.cfg
+        if loss_draws is None:
+            loss_draws = self.noise.get(which)
         ring = rb.ReplayState(data=self.ring, ptr=0, size=0)
         with profiling.span("update.sample"):
             if cfg.episodic:

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mapdn_torch.nets.agents import AgentDense, Dense, _Base, _init_kernel_
+from mapdn_torch.utils import profiling
 
 
 class MLPCritic(_Base):
@@ -144,6 +145,12 @@ def _leaky(x):
     return F.leaky_relu(x, 0.01)
 
 
+def _self_mask(n, device):
+    """(n, n) True on the diagonal: each agent's own slot, which its
+    attention skips."""
+    return torch.eye(n, dtype=torch.bool, device=device)
+
+
 class AgentHead(nn.Module):
     """Per-agent leaky-ReLU layer then a scalar output (the JAX package's
     ``_LeakyHead`` under ``nn.vmap``): (b, n, in) -> (b, n, 1)."""
@@ -167,6 +174,9 @@ class AttentionCritic(nn.Module):
     masked to -1e9); Q = critic([own sa encoding, attended values]) minus
     a state-only bias head.  Returns ((b, n) values, (n,) regulariser
     1e-3 mean_{b,h}(sum_j logits^2 / (n - 1)) over the masked logits).
+    The attention, from the projections to the weighted sum and the
+    regulariser, is the span ``update.attend``; the counter
+    ``update.attend_logits`` adds the b * heads * n * n logits it computes.
 
     ``norm_in`` is accepted and ignored: the JAX module declares it and
     never reads it."""
@@ -198,17 +208,19 @@ class AttentionCritic(nn.Module):
         b, n, hd, d = obs.shape[0], self.n_agents, self.attend_heads, self.head_dim
         sa_enc = _leaky(self.sa_encoders(torch.cat([obs, act], dim=-1)))
         s_enc = _leaky(self.s_encoders(obs))
-        keys = self.key_proj(sa_enc).reshape(b, n, hd, d)
-        sels = self.sel_proj(s_enc).reshape(b, n, hd, d)
-        vals = _leaky(self.val_proj(sa_enc)).reshape(b, n, hd, d)
+        with profiling.span("update.attend"):
+            keys = self.key_proj(sa_enc).reshape(b, n, hd, d)
+            sels = self.sel_proj(s_enc).reshape(b, n, hd, d)
+            vals = _leaky(self.val_proj(sa_enc)).reshape(b, n, hd, d)
 
-        logits = torch.einsum("bihd,bjhd->bhij", sels, keys) / math.sqrt(d)
-        eye = torch.eye(n, dtype=torch.bool, device=obs.device)
-        attn = torch.softmax(logits.masked_fill(eye, -1e9), dim=-1)
-        other_vals = torch.einsum("bhij,bjhd->bihd", attn, vals).reshape(b, n, hd * d)
+            logits = torch.einsum("bihd,bjhd->bhij", sels, keys) / math.sqrt(d)
+            own = _self_mask(n, obs.device)
+            attn = torch.softmax(logits.masked_fill(own, -1e9), dim=-1)
+            other_vals = torch.einsum("bhij,bjhd->bihd", attn, vals).reshape(b, n, hd * d)
+            masked = logits.masked_fill(own, 0.0)
+            attend_reg = 1e-3 * torch.mean(torch.sum(masked**2, dim=-1) / (n - 1), dim=(0, 1))
+        profiling.count("update.attend_logits", b * hd * n * n)
 
         q = self.critics(torch.cat([sa_enc, other_vals], dim=-1))
         bias = self.biases(s_enc)
-        masked = logits.masked_fill(eye, 0.0)
-        attend_reg = 1e-3 * torch.mean(torch.sum(masked**2, dim=-1) / (n - 1), dim=(0, 1))
         return (q - bias)[..., 0], attend_reg

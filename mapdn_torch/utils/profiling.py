@@ -48,6 +48,10 @@ SPANS = (
     "update.optimizer",     # global_norm and the optimizer step; in train.update
     "update.target",        # a loss's bootstrap: the next-state policy and the
                             # (target) critic; in update.loss
+    "update.critic",        # MAAC's attention critic in a loss; in update.loss
+                            # or update.target
+    "update.attend",        # its attention: projections, logits, masked softmax,
+                            # weighted sum, regulariser; in update.critic
     "train.target_update",  # PGTrainer._soft_update; outside train.chunk
     "replay.gather",        # the index gather of a sampled window of a ring
                             # longer than the window; in update.sample
@@ -62,9 +66,11 @@ SPANS = (
 # their lanes, the lanes each env step terminated, the trainer's rollout
 # steps and update steps that ran uncaptured (all of them while a tracer is
 # active: a step replayed as a CUDA graph calls no Python, so it opens no
-# span), the soft target updates, the tester's steps that ran uncaptured
+# span), the soft target updates, the tester's steps that ran uncaptured,
+# the attention logits MAAC's critic computed (samples x heads x agents^2)
 COUNTERS = ("pf.lane_solves", "pf.nr_iters", "env.terminated_lanes", "train.eager_steps",
-            "train.eager_updates", "train.target_updates", "eval.eager_steps")
+            "train.eager_updates", "train.target_updates", "eval.eager_steps",
+            "update.attend_logits")
 
 _ACTIVE = None
 _NO_SPAN = contextlib.nullcontext()

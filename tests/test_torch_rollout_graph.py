@@ -138,10 +138,11 @@ def _pass_through(fn):
 
 # ----------------------------------------------------------------- the rule
 def test_only_ppo_declares_its_rollout_capturable():
-    """The PPO pair and MADDPG, whose rollout runs the base class's
-    get_actions as MAPPO's does; the other algorithms step eagerly."""
+    """The PPO pair, MADDPG and MAAC (a Gaussian head), whose rollout runs
+    the base class's get_actions as MAPPO's does; the other algorithms step
+    eagerly."""
     assert {alg for alg, cls in MODEL_REGISTRY.items() if cls.rollout_capturable} == {
-        "mappo", "ippo", "maddpg"}
+        "mappo", "ippo", "maddpg", "maac"}
 
 
 def test_cpu_steps_run_eager_and_are_tallied():
@@ -229,7 +230,8 @@ def test_eager_steps_counter_counts_every_eager_step():
     # MAPPO's episode crosses no target_update_freq boundary (no soft
     # update), and runs no tester
     assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates",
-                                                       "eval.eager_steps"}
+                                                       "eval.eager_steps",
+                                                       "update.attend_logits"}
     assert counters["train.eager_steps"] == CHUNK == tr.rollout_counts()["eager"]["cpu"]
 
 
@@ -476,9 +478,9 @@ class _NoHostReads:
 @pytest.mark.parametrize("alg,ring_steps,episodic,bf16,history", [
     ("mappo", 8, False, False, 1), ("mappo", 16, False, False, 1), ("mappo", 8, False, True, 1),
     ("mappo", 2, True, False, 1), ("ippo", 8, False, False, 1), ("mappo", 8, False, False, 3),
-    ("maddpg", 15, False, False, 1)],
+    ("maddpg", 15, False, False, 1), ("maac", 15, False, False, 1)],
     ids=["stacked_ring_write", "per_step_ring_write", "bf16_ring", "episodic", "ippo",
-         "history3", "maddpg_ring_wraps"])
+         "history3", "maddpg_ring_wraps", "maac_ring_wraps"])
 def test_graph_logic_is_bit_identical_to_eager(direct, monkeypatch, alg, ring_steps,
                                                episodic, bf16, history):
     """Three chunks (episodes in episodic mode) through the graph path's
@@ -489,7 +491,7 @@ def test_graph_logic_is_bit_identical_to_eager(direct, monkeypatch, alg, ring_st
     and a soft target update follows the second."""
     kw = dict(ring_steps=ring_steps, batch_size=2 if episodic else 8, episodic=episodic,
               replay_bf16=bf16, history=history)
-    if alg == "maddpg":
+    if alg in ("maddpg", "maac"):
         kw.update(target_update_freq=2 * CHUNK)
     ref = _build(alg, **kw)
     with profiling.tracing(profiling.Tracer(device="cpu")):

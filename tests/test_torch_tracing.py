@@ -34,6 +34,7 @@ PARENTS = {
     "update.optimizer": {"train.update"}, "eval.step": {None}, "eval.act": {"eval.step"},
     "update.target": {"update.loss"}, "train.target_update": {None},
     "replay.gather": {"update.sample"},
+    "update.critic": {"update.loss", "update.target"}, "update.attend": {"update.critic"},
 }
 
 
@@ -152,7 +153,8 @@ def test_chunk_traced_is_bit_identical_and_counts_match(monkeypatch, ring_steps)
     # a chunk alone fires no soft target update (PGTrainer._train_episode
     # does) and runs no tester
     assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates",
-                                                       "eval.eager_steps"}
+                                                       "eval.eager_steps",
+                                                       "update.attend_logits"}
     calls = lambda name: spans.get(name, {"calls": 0})["calls"]
     assert calls("train.chunk") == 1
     assert calls("train.rollout_step") == calls("train.policy") == CHUNK
@@ -189,7 +191,8 @@ def test_target_and_gather_spans_of_an_off_policy_ring():
     _check_tree(tracer)
     out = tracer.summary()
     spans, counters = out["spans"], out["counters"]
-    assert set(counters) == set(profiling.COUNTERS) - {"eval.eager_steps"}
+    assert set(counters) == set(profiling.COUNTERS) - {"eval.eager_steps",
+                                                       "update.attend_logits"}
     assert spans["train.chunk"]["calls"] == 2
     assert spans["update.target"]["calls"] == 2 * tr.cfg.value_update_epochs
     assert spans["replay.gather"]["calls"] == spans["update.sample"]["calls"] == 2 * 3

@@ -57,8 +57,11 @@ def _no_graph(counts):
 
 # ----------------------------------------------------------------- the rule
 def test_only_mappo_and_maddpg_declare_their_update_capturable():
+    """MAPPO and MADDPG, whose losses draw nothing, and MAAC, whose loss
+    declares its noise (``loss_noise``), which the update steps draw before
+    it; the others update eagerly."""
     assert {alg for alg, cls in MODEL_REGISTRY.items() if cls.update_capturable} == {
-        "mappo", "maddpg"}
+        "mappo", "maddpg", "maac"}
 
 
 def test_cpu_update_steps_run_eager_and_are_tallied():
@@ -271,8 +274,9 @@ def _parent_update_epochs(self, algo, replay, generator, *, which, epochs, draws
 
 @pytest.mark.parametrize("alg,ring_steps,batch_size,lanes_,bf16", [
     ("mappo", 8, 8, None, False), ("mappo", 8, 8, 6, True), ("mappo", 16, 8, None, False),
-    ("maddpg", 15, 4, None, False)],
-    ids=["fixed_batch", "lane_subsample_bf16", "window", "maddpg_ring_wraps"])
+    ("maddpg", 15, 4, None, False), ("maac", 15, 4, None, False), ("maac", 16, 8, 6, False)],
+    ids=["fixed_batch", "lane_subsample_bf16", "window", "maddpg_ring_wraps",
+         "maac_ring_wraps", "maac_window_lane_subsample"])
 def test_eager_update_is_bit_identical_to_the_code_path_before_graphs(monkeypatch, alg,
                                                                       ring_steps, batch_size,
                                                                       lanes_, bf16):
@@ -294,9 +298,11 @@ def test_eager_update_is_bit_identical_to_the_code_path_before_graphs(monkeypatc
     ("mappo", 8, 8, None, False, False, True), ("mappo", 8, 8, 6, True, False, True),
     ("mappo", 16, 8, None, False, False, True), ("mappo", 16, 8, 6, False, False, True),
     ("mappo", 2, 2, None, False, True, True), ("mappo", 8, 8, None, False, False, False),
-    ("maddpg", 15, 4, None, False, False, True)],
+    ("maddpg", 15, 4, None, False, False, True), ("maac", 15, 4, None, False, False, True),
+    ("maac", 16, 8, 6, False, False, True), ("maac", 2, 2, None, False, True, True)],
     ids=["fixed_batch", "lane_subsample_bf16", "window", "window_lane_subsample", "episodic",
-         "per_agent_params", "maddpg_ring_wraps"])
+         "per_agent_params", "maddpg_ring_wraps", "maac_ring_wraps",
+         "maac_window_lane_subsample", "maac_episodic"])
 def test_graph_logic_is_bit_identical_to_eager(direct, monkeypatch, alg, ring_steps,
                                                batch_size, lanes_, bf16, episodic, shared):
     """Three chunks (episodes in episodic mode) with their update steps
@@ -308,7 +314,7 @@ def test_graph_logic_is_bit_identical_to_eager(direct, monkeypatch, alg, ring_st
     soft target update follows the second chunk."""
     kw = dict(ring_steps=ring_steps, batch_size=batch_size, update_lanes=lanes_,
               replay_bf16=bf16, episodic=episodic, shared_params=shared)
-    if alg == "maddpg":
+    if alg in ("maddpg", "maac"):
         kw.update(target_update_freq=2 * CHUNK)
 
     window_start = rb.window_start
