@@ -22,18 +22,27 @@ Phases, each printing one line; any failure exits non-zero:
                   `kernel` on 4096 env-like case322 lanes and on 1 lane (the
                   single-day eval's); the kernel's solver beside the
                   torch-op solver on 4096 env-like case141 lanes.
-5. golden       - the committed 48-step golden trajectory replayed through
+5. policy       - the fused GRU policy's kernels (csrc/policy_gru.cu) at the
+                  update batches of case33 train8192 (196,608 rows, 6
+                  agents) and case322 train4096 (4,980,736 rows, 38 agents):
+                  the forward's means and stash and every gradient against
+                  the plain versions in float64 on the same inputs, two runs
+                  bit for bit; each kernel's registers and shared memory, its
+                  call and device ms beside its FP32 bound, the plain
+                  versions' and the module's own autograd ms (float32).
+6. golden       - the committed 48-step golden trajectory replayed through
                   the env on the card (float32 tolerances of tests/test_env.py).
-6. train        - the case33 path: MAPPO on case33 at 8192 lanes (the
+7. train        - the case33 path: MAPPO on case33 at 8192 lanes (the
                   bench.py configuration), one warm-up chunk, then one full
                   training episode with the small kernel's launches counted.
-7. train322     - the case322 path through the port's CLI,
+8. train322     - the case322 path through the port's CLI,
                   ``mapdn_torch.train.main``, with the flags of
                   train_case322.sh at 4096 lanes: one training episode, the
                   episode-0 eval and the final save; then ``--resume`` for one
                   more episode.  The large kernel's launches are counted
-                  around each run, the eval's apart from the training's.
-8. algos        - the other algorithms of the case33 sweep (iddpg, maddpg,
+                  around each run, the eval's apart from the training's,
+                  and the fused policy backward's (csrc/policy_gru.cu).
+9. algos        - the other algorithms of the case33 sweep (iddpg, maddpg,
                   matd3, ippo, iac, coma, sqddpg, maac, facmaddpg) and the
                   random baseline, one line each: (a) the losses and
                   gradients (the mixer's too) on the card against the CPU,
@@ -43,30 +52,30 @@ Phases, each printing one line; any failure exits non-zero:
                   scripts/train_zoo.py, the episode-0 eval and the final
                   save, the small kernel's launches counted, the eval's
                   apart.
-9. eval         - ``mapdn_torch.test.main`` on the model.pt files that
+10. eval         - ``mapdn_torch.test.main`` on the model.pt files that
                   `algos` (maac, case33) and `train322` (mappo, case322)
                   saved: case33 in ``single``, ``day_sweep`` (28 days) and
                   ``batch`` (10 episodes), case322 in ``single``, one day of
                   480 steps each, with seconds, steps, launches and the mean
                   reward; each single day's record on the card held to the
                   CPU's for the same model.pt.
-10. bench       - ``bench_torch.py`` at its defaults (8192 case33 lanes, one
+11. bench       - ``bench_torch.py`` at its defaults (8192 case33 lanes, one
                   warm-up and 8 timed MAPPO episodes) in a subprocess: its
                   JSON line, with a finite median, at least 240 small-kernel
                   launches an episode and ``vs_baseline`` above 1.
-11. zoo         - ``mapdn_torch.scripts.train_zoo`` for its ``maddpg`` run cut
+12. zoo         - ``mapdn_torch.scripts.train_zoo`` for its ``maddpg`` run cut
                   to 2 episodes, into a temporary directory, the small
                   kernel's launches counted with the eval's apart; then
                   ``mapdn_torch.scripts.learning_report.main`` over that
                   directory, whose random baseline runs 256 episodes on the
                   card; its reward and ratio beside the JAX package's.
-12. examples    - ``mapdn_torch.code_examples``: the wrapper's 24 random
+13. examples    - ``mapdn_torch.code_examples``: the wrapper's 24 random
                   steps and the 24 batched steps of 512 lanes, the small
                   kernel's launches counted for each; then the wrapper's
                   first 24 steps from ``manual_reset(0, 0, 0)`` under fixed
                   actions without noise on the card against the CPU (the
                   eval's single-day tolerances).
-13. episodic    - coma in episodic mode at 512 case33 lanes through the
+14. episodic    - coma in episodic mode at 512 case33 lanes through the
                   library (the CLI has no flag for it): a pool of 10
                   episode slots, 2 episodes with the update at the second
                   (32 episodes a batch, 10 value and 1 policy epoch) and
@@ -74,18 +83,18 @@ Phases, each printing one line; any failure exits non-zero:
                   episode of mappo in episodic mode (the rollout values
                   filled over the episode).  Seconds, launches, the pool's
                   bytes and peak memory.
-14. nonshared   - ``shared_params: False``: the losses and gradients of
+15. nonshared   - ``shared_params: False``: the losses and gradients of
                   the nine algorithms that take it on the card against the
                   CPU, float64, as ``algos`` (a); then one 512-lane case33
                   training episode each of iddpg and mappo, and that every
                   agent's slice of the policy moved.
-15. solvers     - ``nr_solve(fixed_iter=1, 10)`` and ``nr_solve_dense`` at
+16. solvers     - ``nr_solve(fixed_iter=1, 10)`` and ``nr_solve_dense`` at
                   case33 and case69 on the card against the CPU (float64);
                   case69 and case141 at 512 and 4096 env-like lanes through
                   the large kernel's solver and the torch-op solver, flat
                   and warm starts (the timings that set
                   ``make_solver("auto")``); the path "auto" picks per case.
-16. multigpu    - (a) __graft_entry__.py's five profiles (maddpg as an
+17. multigpu    - (a) __graft_entry__.py's five profiles (maddpg as an
                   episode, mappo, facmaddpg, coma episodic, maddpg
                   decentralised) at 8 lanes as 2 gloo ranks sharing the
                   card (worker processes of this script), each against one
@@ -99,37 +108,37 @@ Phases, each printing one line; any failure exits non-zero:
 ``phase_multigpu_scaling`` (not in ``main``; for a machine of several cards)
 runs the CLI's case33 MAPPO at 4096 lanes as one process on one card and as
 one NCCL rank on each card, and compares their speed and policies.
-17. profiling   - ``device_trace`` around one 512-lane case33 MAPPO chunk under
+18. profiling   - ``device_trace`` around one 512-lane case33 MAPPO chunk under
                   an active ``Tracer``: the Chrome trace names the small
                   kernel and the program's spans around it; the tracer's
                   pf.solve host and stream times; ``PhaseTimer``'s summary.
-18. traditional - ``droop_solve`` and ``opf_solve`` on the card (float32, every
+19. traditional - ``droop_solve`` and ``opf_solve`` on the card (float32, every
                   droop iteration a small-kernel solve) over the learning
                   report's 256 case33 rows, against the CPU at float64 on
                   the same rows; then ``engineering_baselines`` on the card
                   beside the JAX package's committed baselines.
-19. converter   - tests/test_converter.py's five-bus feeder (a 110 kV slack, a
+20. converter   - tests/test_converter.py's five-bus feeder (a 110 kV slack, a
                   transformer with an off-neutral tap) imported through
                   ``from_pandapower`` onto the card and solved through
                   ``make_solver`` (the small kernel): against its plain
                   version and tests/fixtures/golden_feeder.json.
-20. render      - ``mapdn_torch.test.main --test-mode single --render`` on the
+21. render      - ``mapdn_torch.test.main --test-mode single --render`` on the
                   maac model.pt that ``algos`` saved: one day on the card,
                   then its frames (at most 48, PNG) and GIF; where
                   matplotlib is not installed, that ``--render`` raises an
                   ImportError naming it after the day's pickle is written.
-21. discrete    - the discrete-action helpers of ``learn/sampling.py`` on
+22. discrete    - the discrete-action helpers of ``learn/sampling.py`` on
                   (512, 6, 5) float32 logits on the card against the same
                   calls on the CPU with the same explicit draws: every
                   branch of ``select_action_discrete`` (a tie in test mode),
                   the Gumbel rsample's gradient through autograd, zero for
                   the detached sample, each log-prob's; then draws from the
                   card's generator.
-22. history     - one 512-lane case33 iddpg episode with ``history=3``
+23. history     - one 512-lane case33 iddpg episode with ``history=3``
                   (``library_trainer``): the small kernel's launches, every
                   step's stacked obs against a stack of the card's own base
                   frames rolled by hand, across the auto-resets.
-23. bf16        - the bench.py configuration (8192 lanes, ``bench_trainer``):
+24. bf16        - the bench.py configuration (8192 lanes, ``bench_trainer``):
                   one chunk with the bf16 ring and one with a float32 ring
                   from the same carry and generator state: each bf16 field
                   the float32 ring's rounded to bf16 bit for bit, the other
@@ -231,7 +240,7 @@ def phase_device():
 def phase_build():
     from mapdn_torch.utils import cuda_build
     t0 = time.perf_counter()
-    cuda_build.build("nr_small", "nr_large")
+    cuda_build.build(*cuda_build.KERNELS)
     ptxas = {name: [ln.strip() for ln in log["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in cuda_build.BUILD_LOG.items()}
@@ -660,6 +669,150 @@ def phase_kernel_large():
                 library_ms=None)
 
 
+# [policy]: the update batches of case33 train8192 (1024 lanes x 32 steps x 6
+# agents) and case322 train4096 (4096 x 32 x 38), as (agents, obs width, rows)
+POLICY_CASES = {"case33": (6, 38, 196_608), "case322": (38, 62, 4_980_736)}
+# the kernels (float32) against the plain versions in float64 on the same
+# inputs: the forward's means, stash and 1/std to this share of their
+# largest magnitude; each gradient, from the kernels' own stash, to this
+# share of its norm (float32 sums over up to 5M rows, each thread's chain
+# up to 38k rows long).  From the float64 stash instead, the gradients of
+# fc1 and LayerNorm's bias move by up to 3e-4 of their norm on random
+# cotangents, as much as the module's own float32 ops move them: ReLU's
+# mask flips where LayerNorm's output lies within float32 rounding of 0,
+# and each flip moves a whole row's term (PERF.md); that error is reported
+# beside the module's, not held to a limit.
+POLICY_MEANS_TOL = 1e-5
+POLICY_GRAD_TOL = 2e-5
+
+
+def policy_case(n, o, rows, seed=0, device="cuda"):
+    """A shared GRU policy of hidden width 64 with every parameter drawn
+    away from its init, and float32 obs, hidden states and means'
+    cotangents of ``rows`` rows (``n`` agents, obs width ``o``)."""
+    from mapdn_torch.nets.agents import RNNAgent
+    gen = torch.Generator().manual_seed(seed)
+    module = RNNAgent(o + n, hid_size=64).reset_parameters(gen)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    module = module.to(device)
+    obs = torch.randn((rows, o), generator=gen).to(device)
+    hid = torch.tanh(torch.randn((rows, 64), generator=gen)).to(device)
+    dmeans = (torch.randn(rows, generator=gen) / rows).to(device)
+    return module, obs, hid, dmeans
+
+
+@torch.no_grad()
+def policy_reference(obs, hid, dmeans, params, n, stash=None, rstd=None, chunk=1 << 19):
+    """The plain versions in float64 over chunks of whole agent groups of
+    rows: means, stash and 1/std (as float32) and the gradients, these from
+    ``stash`` and ``rstd`` where given (the kernels' own) and from the
+    float64 forward's otherwise."""
+    from mapdn_torch.nets import policy_gru as pg
+    p64 = [p.double() for p in params]
+    chunk -= chunk % max(n, 1)
+    means, stashes, rstds, grads = [], [], [], None
+    for a in range(0, obs.shape[0], chunk):
+        x, h, d = (t[a:a + chunk].double() for t in (obs, hid, dmeans))
+        m, st, rs = pg.policy_fwd_plain(x, h, p64, n)
+        if stash is not None:
+            st, rs = stash[a:a + chunk].double(), rstd[a:a + chunk].double()
+        g = pg.policy_bwd_plain(x, h, d, st, rs, p64, n, blocks=1)
+        grads = g if grads is None else [u + v for u, v in zip(grads, g)]
+        means.append(m.float())
+        stashes.append(st.float())
+        rstds.append(rs.float())
+    return torch.cat(means), torch.cat(stashes), torch.cat(rstds), grads
+
+
+def grad_errors(got, want):
+    """Each gradient's error norm over its norm."""
+    return [float((a.double() - b.double()).norm() / b.double().norm())
+            for a, b in zip(got, want)]
+
+
+def policy_errors(obs, hid, dmeans, params, n, got):
+    """The kernels' (means, stash, rstd, grads) against the float64 plain
+    versions: the forward's largest errors over the largest magnitudes, the
+    gradients from the kernels' stash and, reported only, from the float64
+    stash (``grads_end_to_end``)."""
+    m, st, rs, g = got
+    wm, wst, wrs, wg = policy_reference(obs, hid, dmeans, params, n)
+    same = policy_reference(obs, hid, dmeans, params, n, st, rs)[3]
+    rel = lambda a, b: float((a.double() - b.double()).abs().max() / b.double().abs().max())
+    return {"means": rel(m, wm), "stash": rel(st, wst), "rstd": rel(rs, wrs),
+            "grads": grad_errors(g, same), "grads_end_to_end": grad_errors(g, wg)}, wg
+
+
+def check_policy_errors(errs):
+    assert max(errs["means"], errs["stash"], errs["rstd"]) <= POLICY_MEANS_TOL, errs
+    assert max(errs["grads"]) <= POLICY_GRAD_TOL, errs
+
+
+def phase_policy(smi):
+    from mapdn_torch.nets import policy_gru as pg
+
+    out = {}
+    for name, (n, o, rows) in POLICY_CASES.items():
+        module, obs, hid, dmeans = policy_case(n, o, rows)
+        params = list(module.parameters())
+        fwd = lambda: pg.policy_fwd_kernel(obs, hid, params, n)
+        m, st, rs = fwd()
+        bwd = lambda: pg.policy_bwd_kernel(obs, hid, dmeans, st, rs, params, n)
+        g = bwd()
+        m2, st2, rs2 = fwd()
+        g2 = bwd()
+        torch.cuda.synchronize()
+        repeat = (torch.equal(m, m2) and torch.equal(st, st2) and torch.equal(rs, rs2)
+                  and all(torch.equal(a, b) for a, b in zip(g, g2)))
+        assert repeat, f"{name}: two runs differ"
+        del m2, st2, rs2, g2
+        errs, want_grads = policy_errors(obs, hid, dmeans, params, n, (m, st, rs, g))
+        check_policy_errors(errs)
+        fwd_dev, fwd_host = cuda_device_ms(fwd, launches=5, reps=3)
+        bwd_dev, bwd_host = cuda_device_ms(bwd, launches=5, reps=3)
+        fwd_call = cuda_median_ms(fwd, reps=5, warmup=1)
+        bwd_call = cuda_median_ms(bwd, reps=5, warmup=1)
+        del m, st, rs, g
+        blocks = torch.cuda.get_device_properties(0).multi_processor_count
+        plain_fwd = lambda: pg.policy_fwd_plain(obs, hid, params, n)
+        with torch.no_grad():
+            pm, pst, prs = plain_fwd()
+            plain_fwd_ms = cuda_median_ms(plain_fwd, reps=3, warmup=1)
+            plain_bwd_ms = cuda_median_ms(lambda: pg.policy_bwd_plain(
+                obs, hid, dmeans, pst, prs, params, n, blocks), reps=3, warmup=1)
+        del pm, pst, prs
+        # the module's own ops with autograd (the path the kernels replace)
+        ids = torch.eye(n, device=obs.device).repeat(rows // n, 1)
+
+        def module_step():
+            means, _, _ = module(torch.cat([obs, ids], -1), hid)
+            return torch.autograd.grad(means[:, 0], params, dmeans)
+        errs["module_grads_end_to_end"] = grad_errors(module_step(), want_grads)
+        module_ms = cuda_median_ms(module_step, reps=3, warmup=1)
+        del ids, want_grads
+        flops = pg.flops(rows, o)
+        # obs and h read by both kernels, the stash and 1/std written and
+        # read back, the means written and their cotangents read
+        nbytes = 4 * rows * (2 * (o + 64) + 2 * (pg.STASH * 64 + 1) + 2)
+        bound_ms = 1e3 * max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES)
+        out[name] = dict(
+            rows=rows, agents=n, obs=o, errors=errs, repeat_bitwise=repeat,
+            forward_ms=dict(call=fwd_call, device=fwd_dev, host=fwd_host),
+            backward_ms=dict(call=bwd_call, device=bwd_dev, host=bwd_host),
+            bound_ms=bound_ms, gflop=flops / 1e9, gbytes=nbytes / 1e9,
+            roofline_share=bound_ms / (fwd_dev + bwd_dev),
+            plain_ms=dict(forward=plain_fwd_ms, backward=plain_bwd_ms),
+            module_autograd_ms=module_ms, config=pg.kernel_config(n))
+        del module, obs, hid, dmeans
+        free_memory()
+        torch.cuda.empty_cache()
+    say("policy", launches=dict(forward=pg.policy_fwd.launches,
+                                backward=pg.policy_bwd.launches),
+        means_tol=POLICY_MEANS_TOL, grad_tol=POLICY_GRAD_TOL, card=smi, **out)
+
+
 def small_kernel_counts(ctx, n_iter, inner):
     """What the small kernel runs on these lanes, computed from the counts
     (not measured): the iterations of each block (its 32 lanes' largest
@@ -892,6 +1045,7 @@ def phase_train322(smi, save_path):
     count less its eval's.  Returns the resumed run's training launches."""
     from mapdn_torch import train
     from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.nets.policy_gru import policy_bwd
     from mapdn_torch.pf.fused_nr import nr_solve_large
 
     evaluate, eval_launches = PGTrainer.evaluate, []
@@ -909,11 +1063,15 @@ def phase_train322(smi, save_path):
         for extra in (["--episodes", "1"], ["--episodes", "2", "--resume"]):
             torch.cuda.reset_peak_memory_stats()
             eval_launches.clear()
-            nr_solve_large.launches = 0
+            nr_solve_large.launches = policy_bwd.launches = 0
             t0 = time.perf_counter()
             summary = train.main(flags + extra)
             wall = time.perf_counter() - t0
             launches, in_eval = nr_solve_large.launches, sum(eval_launches)
+            # the policy epochs' backward through the fused kernels: the
+            # warm-up epoch and the graph's capture (its replays launch
+            # from the graph)
+            assert policy_bwd.launches >= 1, policy_bwd.launches
             trained = len(summary["episode_s"])
             assert trained == 1, summary["episode_s"]
             assert launches - in_eval >= 240 * trained, (launches, in_eval)
@@ -922,7 +1080,8 @@ def phase_train322(smi, save_path):
                 for k, v in stat.items():
                     assert math.isfinite(v), (k, v)
             runs.append(dict(summary, launches=launches - in_eval,
-                             eval_launches=in_eval, wall_s=wall,
+                             eval_launches=in_eval, policy_launches=policy_bwd.launches,
+                             wall_s=wall,
                              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
         first, second = runs
         assert any(k.startswith("mean_test_") for k in first["stats"][0])
@@ -942,6 +1101,7 @@ def phase_train322(smi, save_path):
     say("train322", n_envs=N_LANES_322, env_steps=env_steps,
         kernel_launches_train=[r["launches"] for r in runs],
         kernel_launches_eval=[r["eval_launches"] for r in runs],
+        policy_backward_launches=[r["policy_launches"] for r in runs],
         env_steps_per_s=[env_steps * N_LANES_322 / r["episode_s"][0] for r in runs],
         episode_s=[r["episode_s"][0] for r in runs], eval_s=first["eval_s"],
         save_s=[r["save_s"] for r in runs], restore_s=second["restore_s"],
@@ -2333,6 +2493,7 @@ def main():
     phase_build()
     small = phase_kernel()
     large = phase_kernel_large()
+    phase_policy(smi)
     phase_golden()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:

@@ -34,8 +34,10 @@ from typing import List, Optional
 import torch
 
 from mapdn_torch.learn.sampling import batchnorm, select_action_continuous
+from mapdn_torch.nets import policy_gru
 from mapdn_torch.nets.agents import MLPAgent, MLPAgentGaussian, RNNAgent, RNNAgentGaussian
 from mapdn_torch.nets.critics import MLPCritic
+from mapdn_torch.utils import profiling
 from mapdn_torch.utils.device import resolve_device
 
 
@@ -260,22 +262,37 @@ class MARLModel:
         """(n, n) identity: entry (i, j) marks agent i's own slot j."""
         return torch.eye(self.n, dtype=dtype, device=self.device)
 
-    def policy(self, module, obs, last_hid):
+    def policy(self, module, obs, last_hid, need_hid=True):
         """(b, n, o) -> means, log_stds, hid (b, n, .) (reference
         model.py:101-139): the agent ids appended, then one forward of the
         (b, n, .) rows, shared or per agent; the module's log-stds under
         ``gaussian_policy``, else the fixed std exp(log fixed_policy_std);
-        an MLP agent's hid is ``last_hid``."""
-        means, log_stds, hid = module(self.with_ids(obs), last_hid)
+        an MLP agent's hid is ``last_hid``.  Without ``need_hid`` the hid is
+        None.  A differentiated call of a shared deterministic GRU policy
+        runs as the fused kernels of ``nets/policy_gru.py`` where
+        ``policy_gru.fused_reason`` allows; each differentiated call counts
+        its rows in ``policy.fused_rows`` or ``policy.plain_rows``."""
+        n_id = self.id_dim()
+        reason = policy_gru.fused_reason(module, obs, last_hid, n_id, need_hid)
+        if reason != "grad":
+            rows = obs.shape[0] * obs.shape[1]
+            profiling.count("policy.plain_rows" if reason else "policy.fused_rows", rows)
+        if reason is None:
+            means = policy_gru.fused_policy(module, obs, last_hid, n_id)
+            log_stds, hid = None, None
+        else:
+            means, log_stds, hid = module(self.with_ids(obs), last_hid)
+            hid = hid if need_hid else None
         if not self.cfg.gaussian_policy:
             log_stds = torch.full_like(
                 means, math.log(self.cfg.fixed_policy_std))
         return means, log_stds, hid
 
     def get_actions(self, module, obs, last_hid, *, status, exploration,
-                    avail, clip=False, generator=None, noise=None):
-        """Sample/evaluate actions; ``avail`` (n, n_actions) mask."""
-        means, log_stds, hid = self.policy(module, obs, last_hid)
+                    avail, clip=False, generator=None, noise=None, need_hid=True):
+        """Sample/evaluate actions; ``avail`` (n, n_actions) mask; the hid
+        None without ``need_hid``."""
+        means, log_stds, hid = self.policy(module, obs, last_hid, need_hid)
         actions, log_prob = select_action_continuous(
             self.cfg, means, log_stds, status=status, exploration=exploration,
             clip=clip, generator=generator, noise=noise)

@@ -56,7 +56,7 @@ class COMA(MARLModel):
         b = self.unpack(batch)
         policy_loss, value_loss, dist = None, None, (None, None)
         if policy:
-            means, log_stds, _ = self.policy(state.policy, b.state, b.last_hid)
+            means, log_stds, _ = self.policy(state.policy, b.state, b.last_hid, need_hid=False)
             log_prob_a = policy_log_density(cfg, b.action, means, log_stds)
             with torch.no_grad():
                 shape = (cfg.sample_size,) + tuple(means.shape)

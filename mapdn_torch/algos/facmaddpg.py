@@ -40,7 +40,7 @@ class FACMADDPG(IDDPG):
         if policy:
             _, actions_pol, _, dist, _ = self.get_actions(
                 state.policy, b.state, b.last_hid, status="train",
-                exploration=False, avail=avail)
+                exploration=False, avail=avail, need_hid=False)
             advantages = self.value(state.value, b.state, actions_pol)
             if cfg.normalize_advantages:
                 advantages = batchnorm(advantages)

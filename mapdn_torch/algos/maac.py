@@ -79,7 +79,7 @@ class MAAC(MARLModel):
         with torch.set_grad_enabled(policy and torch.is_grad_enabled()):
             _, actions_pol, log_prob_a, dist, _ = self.get_actions(
                 state.policy, b.state, b.last_hid, status="train", exploration=True,
-                avail=avail, noise=noise)
+                avail=avail, noise=noise, need_hid=False)
         log_prob_a = torch.sum(restore_mask * log_prob_a, dim=-1)       # (b, n)
 
         policy_loss, value_loss = None, None

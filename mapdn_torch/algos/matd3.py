@@ -34,10 +34,10 @@ class MATD3(MADDPG):
                 self.apply_critic(module, torch.cat([inputs, 1.0 - zeros], dim=-1)))
 
     def get_actions(self, module, obs, last_hid, *, status, exploration,
-                    avail, clip=False, generator=None, noise=None):
+                    avail, clip=False, generator=None, noise=None, need_hid=True):
         """As the base's, but the means and log-stds of unavailable slots
         are zeroed before sampling (reference matd3.py:100-102)."""
-        means, log_stds, hid = self.policy(module, obs, last_hid)
+        means, log_stds, hid = self.policy(module, obs, last_hid, need_hid)
         avail_mask = (avail != 0).to(means.dtype)
         means = means * avail_mask
         log_stds = log_stds * avail_mask
@@ -57,7 +57,7 @@ class MATD3(MADDPG):
         if policy:
             _, actions_pol, _, dist, _ = self.get_actions(
                 state.policy, b.state, b.last_hid, status="train",
-                exploration=False, avail=avail)
+                exploration=False, avail=avail, need_hid=False)
             advantages, _ = self.value(state.value, b.state, actions_pol)
             if cfg.normalize_advantages:
                 advantages = batchnorm(advantages)

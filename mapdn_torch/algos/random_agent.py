@@ -16,9 +16,9 @@ class RandomAgent(MARLModel):
         return obs.new_zeros(obs.shape[:2])
 
     def get_actions(self, module, obs, last_hid, *, status, exploration,
-                    avail, clip=False, generator=None, noise=None):
+                    avail, clip=False, generator=None, noise=None, need_hid=True):
         """Standard normals (``noise`` where given) as the means, whatever
-        the status; the GRU state passes through."""
+        the status; the GRU state passes through (``need_hid`` or not)."""
         shape = tuple(obs.shape[:2]) + (self.act_dim,)
         means = draw_normal(noise, shape, obs, generator)
         restore_mask = (avail != 0).to(means.dtype)

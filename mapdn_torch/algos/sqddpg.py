@@ -67,7 +67,7 @@ class SQDDPG(MARLModel):
         if policy:
             _, actions_pol, _, dist, _ = self.get_actions(
                 state.policy, b.state, b.last_hid, status="train",
-                exploration=False, avail=avail)
+                exploration=False, avail=avail, need_hid=False)
             advantages = self._shapley(state.value, b.state, actions_pol, draws,
                                        "policy_positions", generator)
             if cfg.normalize_advantages:

@@ -55,7 +55,7 @@ def ddpg_loss(model, state, batch, avail, *, policy=True, value=True):
     if policy:
         _, actions_pol, _, dist, _ = model.get_actions(
             state.policy, b.state, b.last_hid, status="train",
-            exploration=False, avail=avail)
+            exploration=False, avail=avail, need_hid=False)
         advantages = model.value(state.value, b.state, actions_pol)
         if cfg.normalize_advantages:
             advantages = batchnorm(advantages)
@@ -76,7 +76,8 @@ def actor_critic_loss(model, state, batch, avail, *, policy=True, value=True):
     b = model.unpack(batch)
     policy_loss, value_loss, dist = None, None, (None, None)
     if policy:
-        means, log_stds, _ = model.policy(state.policy, b.state, b.last_hid)
+        means, log_stds, _ = model.policy(state.policy, b.state, b.last_hid,
+                                          need_hid=False)
         restore_mask = (avail != 0).to(means.dtype)
         log_prob_a = torch.sum(
             restore_mask * policy_log_density(cfg, b.action, means, log_stds), dim=-1)
@@ -118,7 +119,8 @@ def ppo_loss(model, state, batch, avail, *, policy=True, value=True):
 
     policy_loss, value_loss, dist = None, None, (None, None)
     if policy:
-        means, log_stds, _ = model.policy(state.policy, b.state, b.last_hid)
+        means, log_stds, _ = model.policy(state.policy, b.state, b.last_hid,
+                                          need_hid=False)
         restore_mask = (avail != 0).to(restore_dtype)
         log_prob_a = torch.sum(
             restore_mask * policy_log_density(cfg, b.action, means, log_stds), dim=-1)

@@ -26,6 +26,8 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# every kernel source of csrc/; the first load builds them all, in parallel
+KERNELS = ("nr_small", "nr_large", "policy_gru")
 _LIBS = {}
 BUILD_LOG = {}   # name -> {"seconds": float, "ptxas": str}
 
@@ -100,8 +102,9 @@ def build(*names):
 
 
 def load(name):
-    """The ``ctypes`` library of one kernel, built on first use."""
+    """The ``ctypes`` library of one kernel; the first load builds every
+    kernel of :data:`KERNELS` not built yet, together."""
     if name not in _LIBS:
-        build(name)
+        build(*KERNELS)
         _LIBS[name] = ctypes.CDLL(_lib_path(name)[1])
     return _LIBS[name]

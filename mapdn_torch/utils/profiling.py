@@ -70,7 +70,10 @@ SPANS = (
 # the attention logits MAAC's critic computed (samples x heads x agents^2)
 COUNTERS = ("pf.lane_solves", "pf.nr_iters", "env.terminated_lanes", "train.eager_steps",
             "train.eager_updates", "train.target_updates", "eval.eager_steps",
-            "update.attend_logits")
+            "update.attend_logits",
+            # the rows of each differentiated policy call (MARLModel.policy),
+            # through the fused kernels of nets/policy_gru.py or not
+            "policy.fused_rows", "policy.plain_rows")
 
 _ACTIVE = None
 _NO_SPAN = contextlib.nullcontext()

@@ -5,6 +5,7 @@ cell's trainer, one JSON line a cell, each starting "probe ".
     python scripts/rollout_graph_probe.py window <cell>:<seed>:<seconds> ...
     python scripts/rollout_graph_probe.py parts <cell>:<seed> ...
     python scripts/rollout_graph_probe.py profile <cell>:<seed>:<episodes> ...
+    python scripts/rollout_graph_probe.py split <cell>:<seed> ...
 
 Each imports the tree of the working directory, so that one copy of this
 script reads a parent commit's checkout too (``window`` alone there: a
@@ -30,10 +31,19 @@ parent without the graphs gives null graph readings).
   then eager (a pass-through wrapper on ``get_actions`` keeps every step
   eager), with none of the benchmark's wrappers: busy share, device ms a
   step, kernel and graph launches a step, wall ms a chunk.
+* ``split``: after one chunk, one replay of each update graph under
+  ``torch.profiler`` (device ms by kernel name, largest first), and the
+  policy step's differentiated policy alone on that step's batch (the
+  batch an eager update phase hands ``_update_step``): ``model.policy``
+  and ``torch.autograd.grad`` of its means, device ms each by CUDA
+  events, with the policy's counters (``policy.fused_rows``,
+  ``policy.plain_rows``) from a tracer around one more call and around
+  one more update phase (uncaptured, as in a traced stretch).
 
 Run on the card, e.g. ``python scripts/rollout_graph_probe.py window
 case33_mappo.train512:1234567891:10``.
 """
+import collections
 import json
 import os
 import sys
@@ -43,6 +53,7 @@ sys.path.insert(0, os.getcwd())
 import torch  # noqa: E402
 
 from mapdn_torch.learn.trainer import PGTrainer  # noqa: E402
+from mapdn_torch.utils import profiling  # noqa: E402
 from perfbench import harness, spec, tracing, traffic  # noqa: E402
 
 try:
@@ -266,5 +277,83 @@ def profile(args):
         torch.cuda.empty_cache()
 
 
+def _device_ms_by_kernel(prof):
+    """[kernel name, device ms, launches] of a profile, most time first."""
+    ms, n = collections.defaultdict(float), collections.defaultdict(int)
+    for ev in prof.profiler.kineto_results.events():
+        if tracing._on_device(ev):
+            ms[ev.name()] += ev.duration_ns() * 1e-6
+            n[ev.name()] += 1
+    return sorted(([k[:90], v, n[k]] for k, v in ms.items()), key=lambda x: -x[1])
+
+
+def _policy_alone(tr, algo, batch, reps=3):
+    """The differentiated policy on ``batch`` as the policy loss runs it,
+    then ``torch.autograd.grad`` of its means: device ms of each, CUDA
+    events, ``reps`` times."""
+    model = tr.model
+    b = model.unpack(batch)
+    params = [p for p in algo.policy.parameters() if p.requires_grad]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    fwd, bwd = [], []
+    for _ in range(reps):
+        ev[0].record()
+        means = model.policy(algo.policy, b.state, b.last_hid, need_hid=False)[0]
+        ev[1].record()
+        torch.autograd.grad(means, params, torch.ones_like(means), allow_unused=True)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fwd.append(ev[0].elapsed_time(ev[1]))
+        bwd.append(ev[1].elapsed_time(ev[2]))
+    with profiling.tracing(profiling.Tracer()) as tracer:
+        model.policy(algo.policy, b.state, b.last_hid, need_hid=False)
+    counters = tracer.summary()["counters"]
+    return {"rows": b.state.shape[0] * b.state.shape[1], "forward_ms": fwd,
+            "backward_ms": bwd, "counters": {k: counters.get(k) for k in
+                                             ("policy.fused_rows", "policy.plain_rows")}}
+
+
+def split(args):
+    for arg in args:
+        name, seed = arg.split(":")
+        runner = _runner(name, seed)
+        tr = runner.trainer
+        tr.run_episode()
+        c = tr.carry
+        ug = tr._update_graph
+        out = {"cell": name, "device": torch.cuda.get_device_name(0)}
+        for (which, _), graph in ug.graphs.items():
+            ug.epoch.zero_()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize()
+            ops = _device_ms_by_kernel(prof)
+            out[which] = {"device_ms": sum(o[1] for o in ops), "kernels": len(ops),
+                          "launches": sum(o[2] for o in ops), "top": ops[:25]}
+        batches = []
+        step = tr._update_step
+
+        def keep(algo, batch, which, *rest):
+            if which == "policy":
+                batches[:] = [batch]
+            return step(algo, batch, which, *rest)
+        tr._update_step = keep
+        tr._update_phase(c.algo, c.replay, c.generator)
+        del tr._update_step
+        torch.cuda.synchronize()
+        out["policy_alone"] = _policy_alone(tr, c.algo, batches[0])
+        with profiling.tracing(profiling.Tracer()) as tracer:
+            tr._update_phase(c.algo, c.replay, c.generator)
+        counters = tracer.summary()["counters"]
+        out["traced_update_counters"] = {k: v for k, v in counters.items()
+                                         if k.startswith("policy.")}
+        _emit(out)
+        del runner, tr, c, ug, batches
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
-    {"window": window, "parts": parts, "profile": profile}[sys.argv[1]](sys.argv[2:])
+    {"window": window, "parts": parts, "profile": profile,
+     "split": split}[sys.argv[1]](sys.argv[2:])

@@ -1,6 +1,7 @@
-"""The hand-written CUDA NR kernels (mapdn_torch/csrc/nr_small.cu behind
-``nr_solve_small``, mapdn_torch/csrc/nr_large.cu behind ``nr_solve_large``):
-their wrappers' device contract here, and each kernel against its plain
+"""The hand-written CUDA kernels (mapdn_torch/csrc/nr_small.cu behind
+``nr_solve_small``, mapdn_torch/csrc/nr_large.cu behind ``nr_solve_large``,
+mapdn_torch/csrc/policy_gru.cu behind ``nets/policy_gru.py``): their
+wrappers' device contract here, and each kernel against its plain
 PyTorch version on a GPU.
 
 This file imports neither JAX nor mapdn_tpu, so the GPU tests also run on a
@@ -340,3 +341,119 @@ def test_large_kernel_casts_back_and_bounds_npad(cuda):
     ops += [torch.zeros(s, device="cuda") for s in ((m - 4, m - 4), (1, m), (1, m))]
     with pytest.raises(ValueError, match="npad"):
         fused_nr.nr_large_kernel(*ops, tol=1e-7, max_iter=20, inner_iters=3)
+
+
+# ----------------------------------------------- the fused GRU policy (csrc/policy_gru.cu)
+def test_policy_wrappers_take_plain_versions_for_cpu_tensors():
+    from mapdn_torch.nets import policy_gru
+    from mapdn_torch.nets.agents import RNNAgent
+    gen = torch.Generator().manual_seed(0)
+    module = RNNAgent(38 + 6, hid_size=64).reset_parameters(gen)
+    params = list(module.parameters())
+    obs, hid = torch.randn((120, 38), generator=gen), torch.randn((120, 64), generator=gen)
+    launches = policy_gru.policy_fwd.launches, policy_gru.policy_bwd.launches
+    with torch.no_grad():
+        out = policy_gru.policy_fwd(obs, hid, params, 6)
+        grads = policy_gru.policy_bwd(obs, hid, torch.ones(120), *out[1:], params, 6)
+    want = policy_gru.policy_fwd_plain(obs, hid, params, 6)
+    assert (policy_gru.policy_fwd.launches, policy_gru.policy_bwd.launches) == launches
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert [g.shape for g in grads] == [p.shape for p in params]
+    with pytest.raises(ValueError, match="unsupported device"):
+        policy_gru.policy_fwd(obs.to("meta"), hid.to("meta"), params, 6)
+
+
+def _smoke():
+    """chip_smoke.py's policy helpers (the file sits at the repository
+    root, the working directory of the card's test command)."""
+    import chip_smoke
+    return chip_smoke
+
+
+# beside the update batches of chip_smoke.py (POLICY_CASES): a row count
+# that ends inside a tile, and a policy without agent ids
+POLICY_EXTRA = {"ragged": (6, 38, 6 * 1001), "no_ids": (0, 38, 3001)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["case33", "case322", "ragged", "no_ids"])
+def test_policy_kernels_match_plain_version(cuda, case):
+    """Both kernels at the update batch of case33 train8192 (196,608 rows)
+    and case322 train4096 (4,980,736 rows), at a row count that ends inside
+    a tile and without agent ids, against the plain versions in float64 on
+    the same inputs, to chip_smoke.py's tolerances and for its reasons: the
+    forward's means, stash and 1/std to 1e-5 of their largest magnitude,
+    each gradient from the kernel's own stash to 2e-5 of its norm; two runs
+    bit for bit."""
+    from mapdn_torch.nets import policy_gru
+    smoke = _smoke()
+    n, o, rows = dict(smoke.POLICY_CASES, **POLICY_EXTRA)[case]
+    module, obs, hid, dmeans = smoke.policy_case(n, o, rows, seed=3)
+    params = list(module.parameters())
+    launches = policy_gru.policy_fwd.launches, policy_gru.policy_bwd.launches
+    runs = []
+    for _ in range(2):
+        m, st, rs = policy_gru.policy_fwd(obs, hid, params, n)
+        runs.append((m, st, rs, policy_gru.policy_bwd(obs, hid, dmeans, st, rs, params, n)))
+    torch.cuda.synchronize()
+    assert (policy_gru.policy_fwd.launches - launches[0],
+            policy_gru.policy_bwd.launches - launches[1]) == (2, 2)
+    (m, st, rs, g), (m2, st2, rs2, g2) = runs
+    assert torch.equal(m, m2) and torch.equal(st, st2) and torch.equal(rs, rs2)
+    assert all(torch.equal(a, b) for a, b in zip(g, g2))
+    del runs, m2, st2, rs2, g2
+    smoke.check_policy_errors(smoke.policy_errors(obs, hid, dmeans, params, n,
+                                                   (m, st, rs, g))[0])
+
+
+@pytest.mark.cuda
+def test_policy_kernel_wrappers_check_their_operands(cuda):
+    from mapdn_torch.nets import policy_gru
+    module, obs, hid, _ = _smoke().policy_case(6, 38, 12)
+    params = list(module.parameters())
+    with pytest.raises(ValueError, match="float32"):
+        policy_gru.policy_fwd_kernel(obs.double(), hid.double(), params, 6)
+    with pytest.raises(ValueError, match="shapes"):
+        policy_gru.policy_fwd_kernel(obs, hid[:, :32], params, 6)
+
+
+@pytest.mark.cuda
+def test_graphed_case322_policy_update_matches_uncaptured(cuda):
+    """case322 MAPPO at hidden width 64 (38 agents, obs 62): its policy
+    epochs run the fused kernels, and the update phase graphed equals the
+    uncaptured one bit for bit, every epoch's stats too."""
+    from mapdn_torch.nets import policy_gru
+    from test_torch_update_graph import _graphed_update_against_eager
+    launches = policy_gru.policy_bwd.launches
+    _graphed_update_against_eager(2, case="case322", hid_size=64, lanes_=64, chunk=20,
+                                  episode_limit=25, ring_steps=20, batch_size=20,
+                                  value_update_epochs=2, policy_update_epochs=3)
+    # the eager side's 2 x 3 epochs, the graphed side's warm-up and capture
+    assert policy_gru.policy_bwd.launches - launches == 2 * 3 + 2
+
+
+@pytest.mark.cuda
+def test_maddpg_policy_step_through_the_kernels_matches_the_module(cuda, monkeypatch):
+    """One MADDPG policy loss and its gradients on the card through the
+    fused kernels against the module's own ops (float32 both): the loss to
+    1e-5 relative, each gradient to 1e-4 of its norm."""
+    from mapdn_torch.nets import policy_gru
+    from test_torch_rollout_graph import _build
+    tr = _build(alg="maddpg", device="cuda", lanes_=256, chunk=20, episode_limit=25,
+                ring_steps=20, batch_size=20, hid_size=64)
+    tr.run_episode()
+    algo, batch = tr.carry.algo, tr.carry.replay.data.map(tr._upcast)
+    params = list(algo.policy.parameters())
+
+    def step():
+        loss, _, _ = tr.model.get_loss(algo, batch, tr.avail, value=False)
+        return loss, torch.autograd.grad(loss, params)
+    launches = policy_gru.policy_fwd.launches
+    fused = step()
+    assert policy_gru.policy_fwd.launches == launches + 1
+    monkeypatch.setattr(policy_gru, "_on_card", lambda t: False)
+    plain = step()
+    assert policy_gru.policy_fwd.launches == launches + 1
+    torch.testing.assert_close(fused[0], plain[0], rtol=1e-5, atol=0)
+    for a, b in zip(fused[1], plain[1]):
+        assert float((a - b).norm() / b.norm()) <= 1e-4

@@ -228,10 +228,11 @@ def test_eager_steps_counter_counts_every_eager_step():
         tr.run_episode()
     counters = tracer.summary()["counters"]
     # MAPPO's episode crosses no target_update_freq boundary (no soft
-    # update), and runs no tester
+    # update), and runs no tester; the fused policy runs on the card alone
     assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates",
                                                        "eval.eager_steps",
-                                                       "update.attend_logits"}
+                                                       "update.attend_logits",
+                                                       "policy.fused_rows"}
     assert counters["train.eager_steps"] == CHUNK == tr.rollout_counts()["eager"]["cpu"]
 
 

@@ -151,10 +151,11 @@ def test_chunk_traced_is_bit_identical_and_counts_match(monkeypatch, ring_steps)
     out = tracer.summary()
     spans, counters = out["spans"], out["counters"]
     # a chunk alone fires no soft target update (PGTrainer._train_episode
-    # does) and runs no tester
+    # does) and runs no tester; the fused policy runs on the card alone
     assert set(counters) == set(profiling.COUNTERS) - {"train.target_updates",
                                                        "eval.eager_steps",
-                                                       "update.attend_logits"}
+                                                       "update.attend_logits",
+                                                       "policy.fused_rows"}
     calls = lambda name: spans.get(name, {"calls": 0})["calls"]
     assert calls("train.chunk") == 1
     assert calls("train.rollout_step") == calls("train.policy") == CHUNK
@@ -192,7 +193,8 @@ def test_target_and_gather_spans_of_an_off_policy_ring():
     out = tracer.summary()
     spans, counters = out["spans"], out["counters"]
     assert set(counters) == set(profiling.COUNTERS) - {"eval.eager_steps",
-                                                       "update.attend_logits"}
+                                                       "update.attend_logits",
+                                                       "policy.fused_rows"}
     assert spans["train.chunk"]["calls"] == 2
     assert spans["update.target"]["calls"] == 2 * tr.cfg.value_update_epochs
     assert spans["replay.gather"]["calls"] == spans["update.sample"]["calls"] == 2 * 3
