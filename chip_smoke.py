@@ -24,7 +24,8 @@ Phases, each printing one line; any failure exits non-zero:
                   torch-op solver on 4096 env-like case141 lanes.
 5. policy       - the fused GRU policy's kernels (csrc/policy_gru.cu) at the
                   update batches of case33 train8192 (196,608 rows, 6
-                  agents) and case322 train4096 (4,980,736 rows, 38 agents):
+                  agents), case322 train4096 (4,980,736 rows, 38 agents) and
+                  case141 train4096 (2,883,584 rows, 22 agents, obs 66):
                   the forward's means and stash and every gradient against
                   the plain versions in float64 on the same inputs, two runs
                   bit for bit; each kernel's registers and shared memory, its
@@ -42,6 +43,12 @@ Phases, each printing one line; any failure exits non-zero:
                   more episode.  The large kernel's launches are counted
                   around each run, the eval's apart from the training's,
                   and the fused policy backward's (csrc/policy_gru.cu).
+    train141     - the case141 path through the same CLI with the flags of
+                  train_case141.sh at 4096 lanes: one training episode (one
+                  240-step chunk; obs 66 wide, the policy kernels' second obs
+                  tile; every solve on ``nr_large`` at npad 256), the
+                  episode-0 eval and the save, launches counted as in
+                  `train322`.
 9. algos        - the other algorithms of the case33 sweep (iddpg, maddpg,
                   matd3, ippo, iac, coma, sqddpg, maac, facmaddpg) and the
                   random baseline, one line each: (a) the losses and
@@ -148,6 +155,7 @@ one NCCL rank on each card, and compares their speed and policies.
 The line before the last two is the kernels' JSON record, then the card's
 ``nvidia-smi`` name and power limit, then ``{"ok": true, "device": ...}``.
 """
+import contextlib
 import gc
 import json
 import math
@@ -670,8 +678,11 @@ def phase_kernel_large():
 
 
 # [policy]: the update batches of case33 train8192 (1024 lanes x 32 steps x 6
-# agents) and case322 train4096 (4096 x 32 x 38), as (agents, obs width, rows)
-POLICY_CASES = {"case33": (6, 38, 196_608), "case322": (38, 62, 4_980_736)}
+# agents), case322 train4096 (4096 x 32 x 38) and case141 train4096 (4096 x
+# 32 x 22, obs 66 wide: the kernels' second obs tile), as (agents, obs
+# width, rows)
+POLICY_CASES = {"case33": (6, 38, 196_608), "case322": (38, 62, 4_980_736),
+                "case141": (22, 66, 2_883_584)}
 # the kernels (float32) against the plain versions in float64 on the same
 # inputs: the forward's means, stash and 1/std to this share of their
 # largest magnitude; each gradient, from the kernels' own stash, to this
@@ -804,7 +815,7 @@ def phase_policy(smi):
             bound_ms=bound_ms, gflop=flops / 1e9, gbytes=nbytes / 1e9,
             roofline_share=bound_ms / (fwd_dev + bwd_dev),
             plain_ms=dict(forward=plain_fwd_ms, backward=plain_bwd_ms),
-            module_autograd_ms=module_ms, config=pg.kernel_config(n))
+            module_autograd_ms=module_ms, config=pg.kernel_config(o, n))
         del module, obs, hid, dmeans
         free_memory()
         torch.cuda.empty_cache()
@@ -1024,12 +1035,41 @@ def case322_flags(alg="mappo"):
             "--n-envs", str(N_LANES_322)]
 
 
+def case141_flags(alg="mappo"):
+    """The flags of train_case141.sh at case322's lane count."""
+    return ["--alg", alg, "--mode", "distributed",
+            "--scenario", "case141_3min_final", "--voltage-barrier-type", "bowl",
+            "--n-envs", str(N_LANES_322)]
+
+
 def case33_flags(alg):
     """The flags of train_case33.sh at the lane count of
     scripts/train_zoo.py."""
     return ["--alg", alg, "--mode", "distributed",
             "--scenario", "case33_3min_final", "--voltage-barrier-type", "bowl",
             "--n-envs", str(N_LANES_ALGOS)]
+
+
+@contextlib.contextmanager
+def counted_eval_launches():
+    """The large kernel's launches of each ``PGTrainer.evaluate`` call in
+    the block, appended to the list it yields."""
+    from mapdn_torch.learn.trainer import PGTrainer
+    from mapdn_torch.pf.fused_nr import nr_solve_large
+
+    evaluate, launches = PGTrainer.evaluate, []
+
+    def counted_evaluate(self):
+        before = nr_solve_large.launches
+        out = evaluate(self)
+        launches.append(nr_solve_large.launches - before)
+        return out
+
+    PGTrainer.evaluate = counted_evaluate
+    try:
+        yield launches
+    finally:
+        PGTrainer.evaluate = evaluate
 
 
 def phase_train322(smi, save_path):
@@ -1044,20 +1084,10 @@ def phase_train322(smi, save_path):
     eval runs 10 lanes, not 4096), so each run's training launches are its
     count less its eval's.  Returns the resumed run's training launches."""
     from mapdn_torch import train
-    from mapdn_torch.learn.trainer import PGTrainer
     from mapdn_torch.nets.policy_gru import policy_bwd
     from mapdn_torch.pf.fused_nr import nr_solve_large
 
-    evaluate, eval_launches = PGTrainer.evaluate, []
-
-    def counted_evaluate(self):
-        before = nr_solve_large.launches
-        out = evaluate(self)
-        eval_launches.append(nr_solve_large.launches - before)
-        return out
-
-    PGTrainer.evaluate = counted_evaluate
-    try:
+    with counted_eval_launches() as eval_launches:
         flags = case322_flags() + ["--save-path", save_path]
         runs = []
         for extra in (["--episodes", "1"], ["--episodes", "2", "--resume"]):
@@ -1093,8 +1123,6 @@ def phase_train322(smi, save_path):
         with open(os.path.join(first["tb_dir"], "metrics.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
         assert [r["step"] for r in logged] == [1, 2], logged
-    finally:
-        PGTrainer.evaluate = evaluate
 
     env_steps = first["max_steps"]
     stat0 = first["stats"][0]
@@ -1113,6 +1141,42 @@ def phase_train322(smi, save_path):
         policy_loss=[r["stats"][0]["mean_train_policy_loss"] for r in runs],
         card=smi)
     return second["launches"]
+
+
+def phase_train141(smi, save_path):
+    """case141 MAPPO through the CLI with the flags of train_case141.sh at
+    4096 lanes: one training episode (one 240-step chunk, every solve on
+    ``nr_large`` at npad 256, the policy epochs on the fused kernels' second
+    obs tile: obs 66 wide), the episode-0 eval and the save."""
+    from mapdn_torch import train
+    from mapdn_torch.nets.policy_gru import policy_bwd
+    from mapdn_torch.pf.fused_nr import nr_solve_large
+
+    with counted_eval_launches() as eval_launches:
+        torch.cuda.reset_peak_memory_stats()
+        nr_solve_large.launches = policy_bwd.launches = 0
+        t0 = time.perf_counter()
+        summary = train.main(case141_flags() + ["--save-path", save_path, "--episodes", "1"])
+        wall = time.perf_counter() - t0
+    launches, in_eval = nr_solve_large.launches, sum(eval_launches)
+    assert len(summary["episode_s"]) == 1, summary["episode_s"]
+    assert launches - in_eval >= 240, (launches, in_eval)
+    # the warm-up policy epoch and the graph's capture run the backward
+    # kernel; the replays launch it from the graph
+    assert policy_bwd.launches >= 1, policy_bwd.launches
+    for stat in summary["stats"]:
+        for k, v in stat.items():
+            assert math.isfinite(v), (k, v)
+    assert os.path.isfile(os.path.join(summary["model_dir"], "model.pt"))
+    stat = summary["stats"][0]
+    say("train141", n_envs=N_LANES_322, env_steps=summary["max_steps"],
+        kernel_launches_train=launches - in_eval, kernel_launches_eval=in_eval,
+        policy_backward_launches=policy_bwd.launches,
+        env_steps_per_s=summary["max_steps"] * N_LANES_322 / summary["episode_s"][0],
+        episode_s=summary["episode_s"][0], wall_s=wall,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        reward=stat["mean_train_reward"], value_loss=stat["mean_train_value_loss"],
+        policy_loss=stat["mean_train_policy_loss"], card=smi)
 
 
 def loss_check(alg, info, **over):
@@ -2499,6 +2563,7 @@ def main():
     try:
         small["launches"] = phase_train(smi)
         large["launches"] = phase_train322(smi, os.path.join(work, "case322"))
+        phase_train141(smi, os.path.join(work, "case141"))
         phase_algos(smi, os.path.join(work, "algos"))
         phase_eval(smi, work)
         phase_bench(smi)

@@ -51,6 +51,27 @@
 // them over the blocks in a fixed order: no float atomics, so a run
 // repeats bit for bit and a graph replay equals the uncaptured step.
 //
+// Obs wider than 64 columns (up to 128: case141's 66, case33's and
+// case322's obs at history 2, 76 and 124).  Both kernels are templates on
+// kT, the obs's 64-column tiles; kT = 1 (o <= 64) is the code above, and
+// kT = 2 adds only what the second tile needs:
+//   * forward: fc1's obs columns staged as two (64, 68) tiles; a warp's
+//     8 rows of both tiles are loaded with its h rows, the second tile's
+//     held in registers (16 floats a lane) while the first tile's product
+//     runs in the warp's x buffer, then stored there for the second
+//     product.  The sum over the columns keeps their order.  Shared memory
+//     (bytes): 193,536 + 256 n_id at kT = 1, 210,944 + 256 n_id at kT = 2.
+//   * backward: the tile's obs as two (64, 68) tiles, loaded with its h;
+//     each thread owns the 2-unit x 4-column block of fc1 in both column
+//     tiles, 64 gradient entries in registers in place of 56.  Shared
+//     memory 203,776 + 256 n_id at kT = 1, 221,184 + 256 n_id at kT = 2,
+//     so kT = 2 takes at most 44 agents within a block's 227 KB
+//     (kMaxAgentsWide); the registers stay capped at 128 a thread by the
+//     one 512-thread block an SM, and what does not fit spills to local
+//     memory (kT = 1 already spills 56 bytes a thread).
+// fc1's FMAs run over round4(o) columns, so o = 66 pays for 68: the
+// counts of the benchmark (perfbench/policy_counting.py) take o.
+//
 // Numbers: FP32 FMAs throughout, precise expf, tanhf, sqrtf and IEEE
 // division; no tensor cores (TF32 fails every cell's check, PERF.md §6).
 
@@ -69,6 +90,8 @@ constexpr int kBwdRows = 4;              // rows a warp, backward
 constexpr int kFwdTile = kWarps * kFwdRows;
 constexpr int kBwdTile = kWarps * kBwdRows;
 constexpr int kMaxAgents = 64;
+constexpr int kMaxAgentsWide = 44;       // agents at kT = 2 (the backward's smem)
+constexpr int kMaxObs = 2 * kH;
 constexpr int kStash = 5;                // xhat, r, z, nn, hn
 constexpr float kEps = 1e-6f;
 constexpr unsigned kAll = 0xffffffffu;
@@ -88,7 +111,7 @@ struct Weights {
 
 struct Shape {
   long rows;
-  int o;        // obs width, <= 64
+  int o;        // obs width, <= 64 kT
   int n_id;     // agents of the one-hot, 0 without ids
 };
 
@@ -110,16 +133,18 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 
 // ------------------------------------------------------------------ forward
-// Shared memory (floats): w1o (64, kS) the obs columns of fc1, zero past o;
-// w1id (n_id, 64) its id columns; w_ih, w_hh (192, kS); b1, ln_w, ln_b,
-// b_hn, w_head (64 each), b_ih (192); then per warp x (kFwdRows, kS), which
-// holds the stem's output once the first product has read it, and h
-// (kFwdRows, kS).
+// Shared memory (floats): w1o (kT, 64, kS) the obs columns of fc1, column
+// 64 c + k of tile c at k, zero past o; w1id (n_id, 64) its id columns;
+// w_ih, w_hh (192, kS); b1, ln_w, ln_b, b_hn, w_head (64 each), b_ih (192);
+// then per warp x (kFwdRows, kS), which holds each obs tile in turn and the
+// stem's output once the products have read them, and h (kFwdRows, kS).
+template <int kT>
 __host__ __device__ constexpr int fwd_floats(int n_id) {
-  return 64 * kS + n_id * 64 + 2 * 192 * kS + 5 * 64 + 192
+  return kT * 64 * kS + n_id * 64 + 2 * 192 * kS + 5 * 64 + 192
          + kWarps * 2 * kFwdRows * kS;
 }
 
+template <int kT>
 __global__ void __launch_bounds__(kThreads, 1)
 policy_fwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs,
                   const float* __restrict__ hid, float* __restrict__ means,
@@ -127,7 +152,7 @@ policy_fwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
   extern __shared__ __align__(16) float sm[];
   const int o = sh.o, n_id = sh.n_id, in = o + n_id, o4 = round4(o);
   float* w1o = sm;
-  float* w1id = w1o + 64 * kS;
+  float* w1id = w1o + kT * 64 * kS;
   float* wih = w1id + n_id * 64;
   float* whh = wih + 192 * kS;
   float* b1 = whh + 192 * kS;
@@ -140,10 +165,13 @@ policy_fwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
   float* xs = bih + 192 + warp * 2 * kFwdRows * kS;
   float* hs = xs + kFwdRows * kS;
 
-  for (int i = threadIdx.x; i < 64 * kS; i += kThreads) {
-    const int j = i / kS, k = i % kS;
-    w1o[i] = k < o ? w.w1[j * in + k] : 0.f;
-  }
+#pragma unroll
+  for (int c = 0; c < kT; ++c)
+    for (int i = threadIdx.x; i < 64 * kS; i += kThreads) {
+      const int j = i / kS, k = i % kS + 64 * c;
+      const bool in_tile = kT == 1 || k < 64 * (c + 1);
+      w1o[c * 64 * kS + i] = (k < o && in_tile) ? w.w1[j * in + k] : 0.f;
+    }
   for (int i = threadIdx.x; i < n_id * 64; i += kThreads) {
     const int a = i / 64, j = i % 64;
     w1id[i] = w.w1[j * in + o + a];
@@ -169,14 +197,15 @@ policy_fwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
   for (long t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long r0 = t * kFwdTile + warp * kFwdRows;   // the warp's first row
     // the warp's rows of obs (zero past o and past the last row) and of h
-    // into its buffers, every load issued before the first store
-    float xv[kFwdRows][2];
+    // into its buffers, every load issued before the first store; the
+    // later obs tiles wait in registers for their turn in x
+    float xv[kFwdRows][2 * kT];
     float4 hv[kFwdRows / 2];
 #pragma unroll
     for (int i = 0; i < kFwdRows; ++i) {
       const long r = r0 + i;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
+      for (int c = 0; c < 2 * kT; ++c) {
         const int k = lane + 32 * c;
         xv[i][c] = (k < o && r < sh.rows) ? obs[r * o + k] : 0.f;
       }
@@ -208,14 +237,28 @@ policy_fwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
       y[i][0] = b1[j0] + (n_id ? w1id[a * 64 + j0] : 0.f);
       y[i][1] = b1[j1] + (n_id ? w1id[a * 64 + j1] : 0.f);
     }
-    for (int k = 0; k < o4; k += 4) {
-      const float4 wa = *reinterpret_cast<const float4*>(w1o + j0 * kS + k);
-      const float4 wb = *reinterpret_cast<const float4*>(w1o + j1 * kS + k);
 #pragma unroll
-      for (int i = 0; i < kFwdRows; ++i) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + i * kS + k);
-        y[i][0] = dot4(xv, wa, y[i][0]);
-        y[i][1] = dot4(xv, wb, y[i][1]);
+    for (int c = 0; c < kT; ++c) {
+      if (c > 0) {   // the next obs tile into x, once every lane has read the last
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < kFwdRows; ++i) {
+          xs[i * kS + lane] = xv[i][2 * c];
+          xs[i * kS + lane + 32] = xv[i][2 * c + 1];
+        }
+        __syncwarp();
+      }
+      const float* w1c = w1o + c * 64 * kS;
+      const int kn = kT == 1 ? o4 : min(o4 - 64 * c, 64);
+      for (int k = 0; k < kn; k += 4) {
+        const float4 wa = *reinterpret_cast<const float4*>(w1c + j0 * kS + k);
+        const float4 wb = *reinterpret_cast<const float4*>(w1c + j1 * kS + k);
+#pragma unroll
+        for (int i = 0; i < kFwdRows; ++i) {
+          const float4 xv = *reinterpret_cast<const float4*>(xs + i * kS + k);
+          y[i][0] = dot4(xv, wa, y[i][0]);
+          y[i][1] = dot4(xv, wb, y[i][1]);
+        }
       }
     }
     __syncwarp();   // every lane's reads of x precede the stem's writes
@@ -318,13 +361,18 @@ policy_fwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
 // ----------------------------------------------------------------- backward
 // Shared memory (floats): wt (64, kGS), W_ih transposed by unit, the float4
 // (W_ih[j][k], W_ih[64 + j][k], W_ih[128 + j][k], 0) at wt[k][4 j]; ln_w,
-// ln_b, w_head (64 each); the tile's x, s, h and the stem's cotangent dy
-// (kBwdTile, kS) each, the gates' cotangents g (kBwdTile, kGS) as the float4
-// (d r_pre, d z_pre, d n_pre, d hn) of each unit, the means' cotangents
-// (kBwdTile); the id columns' gradient (n_id, 64).
+// ln_b, w_head (64 each); the tile's x (kT, kBwdTile, kS), column 64 c + k
+// of tile c at k, and s, h and the stem's cotangent dy (kBwdTile, kS) each,
+// the gates' cotangents g (kBwdTile, kGS) as the float4 (d r_pre, d z_pre,
+// d n_pre, d hn) of each unit, the means' cotangents (kBwdTile); the id
+// columns' gradient (n_id, 64).
+template <int kT>
 __host__ __device__ constexpr int bwd_floats(int n_id) {
-  return 64 * kGS + 3 * 64 + 4 * kBwdTile * kS + kBwdTile * kGS + kBwdTile + n_id * 64;
+  return 64 * kGS + 3 * 64 + (3 + kT) * kBwdTile * kS + kBwdTile * kGS + kBwdTile
+         + n_id * 64;
 }
+static_assert(bwd_floats<2>(kMaxAgentsWide) * 4 <= 227 * 1024, "kT = 2 exceeds a block's smem");
+static_assert(bwd_floats<1>(kMaxAgents) * 4 <= 227 * 1024, "kT = 1 exceeds a block's smem");
 
 // partial gradients of one block: the parameters' flat layout, in the
 // module's order (fc1 W and b, LayerNorm scale and bias, W_ih, W_hh, b_ih,
@@ -349,6 +397,7 @@ __host__ __device__ Offsets offsets(int in) {
   return f;
 }
 
+template <int kT>
 __global__ void __launch_bounds__(kThreads, 1)
 policy_bwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs,
                   const float* __restrict__ hid, const float* __restrict__ dmeans,
@@ -361,7 +410,7 @@ policy_bwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
   float* lnb = lnw + 64;
   float* whead = lnb + 64;
   float* xt = whead + 64;
-  float* st = xt + kBwdTile * kS;
+  float* st = xt + kT * kBwdTile * kS;
   float* ht = st + kBwdTile * kS;
   float* dyt = ht + kBwdTile * kS;
   float* gt = dyt + kBwdTile * kS;
@@ -382,9 +431,10 @@ policy_bwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
   __syncthreads();
 
   // the thread's block of W_ih, W_hh (3 gates x units 2tj, 2tj + 1 x
-  // columns 4tk .. 4tk + 3) and fc1's obs columns (units x columns)
+  // columns 4tk .. 4tk + 3) and fc1's obs columns (units x columns of
+  // each obs tile)
   const int tk = tid & 15, tj = tid >> 4, kb = 4 * tk, ja = 2 * tj;
-  float gih[3][2][4], ghh[3][2][4], g1[2][4];
+  float gih[3][2][4], ghh[3][2][4], g1[kT][2][4];
 #pragma unroll
   for (int g = 0; g < 3; ++g)
 #pragma unroll
@@ -392,9 +442,11 @@ policy_bwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
 #pragma unroll
       for (int c = 0; c < 4; ++c) gih[g][u][c] = ghh[g][u][c] = 0.f;
 #pragma unroll
-  for (int u = 0; u < 2; ++u)
+  for (int b = 0; b < kT; ++b)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) g1[u][c] = 0.f;
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) g1[b][u][c] = 0.f;
   // the lane's units' small gradients, over its warp's rows
   float lb1[2] = {0.f, 0.f}, lgam[2] = {0.f, 0.f}, lbet[2] = {0.f, 0.f};
   float lbih[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}}, lbhn[2] = {0.f, 0.f};
@@ -408,14 +460,16 @@ policy_bwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
     // last row), every load issued before the first store
     {
       constexpr int kX = kBwdTile * kH / kThreads, kHv = kBwdTile * 16 / kThreads;
-      float xv[kX];
+      float xv[kT][kX];
       float4 hv[kHv];
 #pragma unroll
-      for (int q = 0; q < kX; ++q) {
-        const int e = tid + kThreads * q, i = e >> 6, k = e & 63;
-        const long r = t0 + i;
-        xv[q] = (k < o && r < sh.rows) ? obs[r * o + k] : 0.f;
-      }
+      for (int b = 0; b < kT; ++b)
+#pragma unroll
+        for (int q = 0; q < kX; ++q) {
+          const int e = tid + kThreads * q, i = e >> 6, k = 64 * b + (e & 63);
+          const long r = t0 + i;
+          xv[b][q] = (k < o && r < sh.rows) ? obs[r * o + k] : 0.f;
+        }
 #pragma unroll
       for (int q = 0; q < kHv; ++q) {
         const int e = tid + kThreads * q, i = e >> 4, k = (e & 15) * 4;
@@ -425,10 +479,12 @@ policy_bwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
       }
       const float dv = (tid < kBwdTile && t0 + tid < sh.rows) ? dmeans[t0 + tid] : 0.f;
 #pragma unroll
-      for (int q = 0; q < kX; ++q) {
-        const int e = tid + kThreads * q;
-        xt[(e >> 6) * kS + (e & 63)] = xv[q];
-      }
+      for (int b = 0; b < kT; ++b)
+#pragma unroll
+        for (int q = 0; q < kX; ++q) {
+          const int e = tid + kThreads * q;
+          xt[b * kBwdTile * kS + (e >> 6) * kS + (e & 63)] = xv[b][q];
+        }
 #pragma unroll
       for (int q = 0; q < kHv; ++q) {
         const int e = tid + kThreads * q;
@@ -535,11 +591,18 @@ policy_bwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
     for (int i = 0; i < kBwdTile; ++i) {
       const float4 sv = *reinterpret_cast<const float4*>(st + i * kS + kb);
       const float4 hv = *reinterpret_cast<const float4*>(ht + i * kS + kb);
-      const float4 xv = *reinterpret_cast<const float4*>(xt + i * kS + kb);
+      float x4[kT][4];
+#pragma unroll
+      for (int b = 0; b < kT; ++b) {
+        const float4 xv = *reinterpret_cast<const float4*>(xt + b * kBwdTile * kS + i * kS + kb);
+        x4[b][0] = xv.x;
+        x4[b][1] = xv.y;
+        x4[b][2] = xv.z;
+        x4[b][3] = xv.w;
+      }
       const float2 dy = *reinterpret_cast<const float2*>(dyt + i * kS + ja);
       const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
       const float h4[4] = {hv.x, hv.y, hv.z, hv.w};
-      const float x4[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const float4 gv = *reinterpret_cast<const float4*>(gt + i * kGS + 4 * (ja + u));
@@ -552,7 +615,8 @@ policy_bwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
           ghh[0][u][c] = fmaf(gv.x, h4[c], ghh[0][u][c]);
           ghh[1][u][c] = fmaf(gv.y, h4[c], ghh[1][u][c]);
           ghh[2][u][c] = fmaf(gv.w, h4[c], ghh[2][u][c]);
-          g1[u][c] = fmaf(dyu, x4[c], g1[u][c]);
+#pragma unroll
+          for (int b = 0; b < kT; ++b) g1[b][u][c] = fmaf(dyu, x4[b][c], g1[b][u][c]);
         }
       }
     }
@@ -573,7 +637,9 @@ policy_bwd_kernel(const Weights w, const Shape sh, const float* __restrict__ obs
         out[f.wih + (g * kH + j) * kH + k] = gih[g][u][c];
         out[f.whh + (g * kH + j) * kH + k] = ghh[g][u][c];
       }
-      if (k < o) out[f.w1 + j * in + k] = g1[u][c];
+#pragma unroll
+      for (int b = 0; b < kT; ++b)
+        if (64 * b + k < o) out[f.w1 + j * in + 64 * b + k] = g1[b][u][c];
     }
   }
   for (int p = tid; p < n_id * 64; p += kThreads) {
@@ -628,7 +694,8 @@ __global__ void policy_reduce_kernel(const float* __restrict__ partial, int bloc
 }
 
 bool valid(long rows, int o, int n_id) {
-  return rows >= 0 && o >= 1 && o <= kH && n_id >= 0 && n_id <= kMaxAgents;
+  return rows >= 0 && o >= 1 && o <= kMaxObs && n_id >= 0
+         && n_id <= (o <= kH ? kMaxAgents : kMaxAgentsWide);
 }
 
 template <typename K>
@@ -647,6 +714,46 @@ Weights weights(const float* w1, const float* b1, const float* ln_w, const float
   return Weights{w1, b1, ln_w, ln_b, w_ih, w_hh, b_ih, b_hn, w_head, b_head};
 }
 
+template <int kT>
+int launch_forward(const Weights& w, const Shape& sh, const float* obs, const float* hid,
+                   float* means, float* stash, float* rstd, int blocks, cudaStream_t s) {
+  static int smem_set = 0;
+  const int bytes = fwd_floats<kT>(sh.n_id) * static_cast<int>(sizeof(float));
+  const int rc = raise_smem(policy_fwd_kernel<kT>, bytes, &smem_set);
+  if (rc) return rc;
+  policy_fwd_kernel<kT><<<blocks, kThreads, bytes, s>>>(w, sh, obs, hid, means, stash, rstd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kT>
+int launch_backward(const Weights& w, const Shape& sh, const float* obs, const float* hid,
+                    const float* dmeans, const float* stash, const float* rstd,
+                    float* partial, int blocks, cudaStream_t s) {
+  static int smem_set = 0;
+  const int bytes = bwd_floats<kT>(sh.n_id) * static_cast<int>(sizeof(float));
+  const int rc = raise_smem(policy_bwd_kernel<kT>, bytes, &smem_set);
+  if (rc) return rc;
+  policy_bwd_kernel<kT><<<blocks, kThreads, bytes, s>>>(w, sh, obs, hid, dmeans, stash, rstd,
+                                                        partial);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kT>
+int kernel_config(int n_id, int* cfg) {
+  cudaFuncAttributes a;
+  cudaError_t rc = cudaFuncGetAttributes(&a, policy_fwd_kernel<kT>);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  cfg[0] = fwd_floats<kT>(n_id) * static_cast<int>(sizeof(float));
+  cfg[1] = a.numRegs;
+  cfg[2] = static_cast<int>(a.localSizeBytes);
+  rc = cudaFuncGetAttributes(&a, policy_bwd_kernel<kT>);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  cfg[3] = bwd_floats<kT>(n_id) * static_cast<int>(sizeof(float));
+  cfg[4] = a.numRegs;
+  cfg[5] = static_cast<int>(a.localSizeBytes);
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -654,8 +761,8 @@ extern "C" {
 // All arrays on the device, float32, contiguous: the parameters in the
 // module's shapes (fc1 (64, o + n_id), ..., head (1, 64) and (1,)); obs
 // (rows, o), hid (rows, 64); means (rows,), stash (rows, 5, 64), rstd
-// (rows,).  `blocks` blocks of 512 threads.  Returns the cudaError_t of the
-// launch (0 = ok).
+// (rows,); 1 <= o <= 128, n_id <= 64 (44 where o > 64).  `blocks` blocks of
+// 512 threads.  Returns the cudaError_t of the launch (0 = ok).
 int policy_gru_forward(const float* w1, const float* b1, const float* ln_w,
                        const float* ln_b, const float* w_ih, const float* w_hh,
                        const float* b_ih, const float* b_hn, const float* w_head,
@@ -664,14 +771,11 @@ int policy_gru_forward(const float* w1, const float* b1, const float* ln_w,
                        int n_id, int blocks, void* stream) {
   if (!valid(rows, o, n_id) || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
-  static int smem_set = 0;
-  const int bytes = fwd_floats(n_id) * static_cast<int>(sizeof(float));
-  const int rc = raise_smem(policy_fwd_kernel, bytes, &smem_set);
-  if (rc) return rc;
-  policy_fwd_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      weights(w1, b1, ln_w, ln_b, w_ih, w_hh, b_ih, b_hn, w_head, b_head),
-      Shape{rows, o, n_id}, obs, hid, means, stash, rstd);
-  return static_cast<int>(cudaGetLastError());
+  const Weights w = weights(w1, b1, ln_w, ln_b, w_ih, w_hh, b_ih, b_hn, w_head, b_head);
+  const Shape sh{rows, o, n_id};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return o <= kH ? launch_forward<1>(w, sh, obs, hid, means, stash, rstd, blocks, s)
+                 : launch_forward<2>(w, sh, obs, hid, means, stash, rstd, blocks, s);
 }
 
 // The backward from the forward's stash and rstd and the means' cotangent
@@ -686,15 +790,12 @@ int policy_gru_backward(const float* w1, const float* b1, const float* ln_w,
                         float* partial, float* grads, long rows, int o, int n_id,
                         int blocks, void* stream) {
   if (!valid(rows, o, n_id) || blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Weights w = weights(w1, b1, ln_w, ln_b, w_ih, w_hh, b_ih, b_hn, w_head, b_head);
+  const Shape sh{rows, o, n_id};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static int smem_set = 0;
-  const int bytes = bwd_floats(n_id) * static_cast<int>(sizeof(float));
-  int rc = raise_smem(policy_bwd_kernel, bytes, &smem_set);
-  if (rc) return rc;
-  policy_bwd_kernel<<<blocks, kThreads, bytes, s>>>(
-      weights(w1, b1, ln_w, ln_b, w_ih, w_hh, b_ih, b_hn, w_head, b_head),
-      Shape{rows, o, n_id}, obs, hid, dmeans, stash, rstd, partial);
-  rc = static_cast<int>(cudaGetLastError());
+  int rc = o <= kH
+      ? launch_backward<1>(w, sh, obs, hid, dmeans, stash, rstd, partial, blocks, s)
+      : launch_backward<2>(w, sh, obs, hid, dmeans, stash, rstd, partial, blocks, s);
   if (rc) return rc;
   const int total = offsets(o + n_id).total;
   policy_reduce_kernel<<<(total + 255) / 256, 256, 0, s>>>(partial, blocks, total, grads);
@@ -704,22 +805,13 @@ int policy_gru_backward(const float* w1, const float* b1, const float* ln_w,
 // The number of the policy's parameters (the length of grads).
 int policy_gru_params(int o, int n_id) { return offsets(o + n_id).total; }
 
-// Each kernel's resources: cfg receives {forward dynamic shared bytes,
-// registers a thread, local bytes a thread, backward dynamic shared bytes,
-// registers, local bytes}.  Returns a cudaError_t (0 = ok).
-int policy_gru_config(int n_id, int* cfg) {
-  cudaFuncAttributes a;
-  cudaError_t rc = cudaFuncGetAttributes(&a, policy_fwd_kernel);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  cfg[0] = fwd_floats(n_id) * static_cast<int>(sizeof(float));
-  cfg[1] = a.numRegs;
-  cfg[2] = static_cast<int>(a.localSizeBytes);
-  rc = cudaFuncGetAttributes(&a, policy_bwd_kernel);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  cfg[3] = bwd_floats(n_id) * static_cast<int>(sizeof(float));
-  cfg[4] = a.numRegs;
-  cfg[5] = static_cast<int>(a.localSizeBytes);
-  return 0;
+// The resources of the kernels that obs width o runs: cfg receives
+// {forward dynamic shared bytes, registers a thread, local bytes a thread,
+// backward dynamic shared bytes, registers, local bytes}.  Returns a
+// cudaError_t (0 = ok).
+int policy_gru_config(int o, int n_id, int* cfg) {
+  if (!valid(0, o, n_id)) return static_cast<int>(cudaErrorInvalidValue);
+  return o <= kH ? kernel_config<1>(n_id, cfg) : kernel_config<2>(n_id, cfg);
 }
 
 const char* policy_gru_error_string(int code) {

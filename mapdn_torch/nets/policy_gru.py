@@ -32,11 +32,13 @@ import ctypes
 import torch
 
 from mapdn_torch.nets.agents import RNNAgent
-from mapdn_torch.utils import cuda_build
+from mapdn_torch.utils import cuda_build, profiling
 
 HIDDEN = 64
-MAX_OBS = 64          # the kernels' tile rows hold 64 obs columns
+MAX_OBS = 128         # two 64-column obs tiles
 MAX_AGENTS = 64       # fc1's id columns in shared memory
+MAX_AGENTS_WIDE = 44  # the same where obs is wider than 64 (the backward's
+                      # second obs tile takes the rest of its shared memory)
 BWD_TILE = 64         # rows a backward tile
 STASH = 5             # xhat, r, z, nn, hn a row, each (HIDDEN,)
 LN_EPS = 1e-6
@@ -64,8 +66,8 @@ def fused_reason(module, obs, last_hid, n_id, need_hid):
     * ``module``: not a shared deterministic ``RNNAgent`` (per-agent
       parameters, a Gaussian head, an MLP);
     * ``layers``: no LayerNorm, another activation, another hidden width,
-      more than one action, obs wider than ``MAX_OBS`` or more than
-      ``MAX_AGENTS`` agents;
+      more than one action, obs wider than ``MAX_OBS`` or more agents than
+      :func:`max_agents` allows;
     * ``hid``: the caller reads the new hidden state;
     * ``inputs``: obs or the hidden state require grad (the kernels give
       the parameters' gradients alone);
@@ -77,7 +79,7 @@ def fused_reason(module, obs, last_hid, n_id, need_hid):
         return "module"
     if (module.norm is None or module.hid_activation != "relu"
             or module.hid_size != HIDDEN or module.head.weight.shape[0] != 1
-            or obs.shape[-1] > MAX_OBS or not 0 <= n_id <= MAX_AGENTS
+            or obs.shape[-1] > MAX_OBS or not 0 <= n_id <= max_agents(obs.shape[-1])
             or module.fc1.weight.shape[1] != obs.shape[-1] + n_id
             or (n_id and obs.shape[-2] != n_id)):
         return "layers"
@@ -88,6 +90,11 @@ def fused_reason(module, obs, last_hid, n_id, need_hid):
     if not all(_on_card(t) for t in (obs, last_hid, *module.parameters())):
         return "device"
     return None
+
+
+def max_agents(o):
+    """The most agent-id columns the kernels take at obs width ``o``."""
+    return MAX_AGENTS if o <= HIDDEN else MAX_AGENTS_WIDE
 
 
 # ------------------------------------------------------------ plain versions
@@ -172,7 +179,7 @@ _SIGNATURES = {
     "policy_gru_forward": ([_P] * 15 + [_L, _I, _I, _I, _P], _I),
     "policy_gru_backward": ([_P] * 17 + [_L, _I, _I, _I, _P], _I),
     "policy_gru_params": ([_I, _I], _I),
-    "policy_gru_config": ([_I, _P], _I),
+    "policy_gru_config": ([_I, _I, _P], _I),
     "policy_gru_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -195,9 +202,9 @@ def _check(name, tensors, o, n_id):
             raise ValueError(f"{name}: operands must be contiguous float32 CUDA tensors")
     if tensors[1].data_ptr() % 16:
         raise ValueError(f"{name}: the hidden states must be 16-byte aligned")
-    if not (1 <= o <= MAX_OBS and 0 <= n_id <= MAX_AGENTS):
+    if not (1 <= o <= MAX_OBS and 0 <= n_id <= max_agents(o)):
         raise ValueError(f"{name}: obs width {o} (at most {MAX_OBS}) or {n_id} agents "
-                         f"(at most {MAX_AGENTS})")
+                         f"(at most {max_agents(o)} at that width)")
 
 
 def _blocks(device, rows, tile):
@@ -290,12 +297,13 @@ policy_fwd.launches = 0
 policy_bwd.launches = 0
 
 
-def kernel_config(n_id):
-    """Each kernel's resources (needs the card): dynamic shared bytes,
-    registers a thread and local bytes a thread, forward then backward."""
+def kernel_config(o, n_id):
+    """The resources of the kernels that obs width ``o`` runs (needs the
+    card): dynamic shared bytes, registers a thread and local bytes a
+    thread, forward then backward."""
     lib = _lib()
     cfg = (ctypes.c_int * 6)()
-    _raise(lib, lib.policy_gru_config(n_id, ctypes.addressof(cfg)), "config")
+    _raise(lib, lib.policy_gru_config(o, n_id, ctypes.addressof(cfg)), "config")
     keys = ("dynamic_smem_bytes", "registers", "local_bytes")
     return {"forward": dict(zip(keys, cfg[:3])), "backward": dict(zip(keys, cfg[3:]))}
 
@@ -306,7 +314,8 @@ class _FusedPolicy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, obs, hid, n_id, *params):
-        means, stash, rstd = policy_fwd(obs, hid, params, n_id)
+        with profiling.span("policy.fused_fwd"):
+            means, stash, rstd = policy_fwd(obs, hid, params, n_id)
         ctx.n_id = n_id
         ctx.save_for_backward(obs, hid, stash, rstd, *params)
         return means
@@ -314,7 +323,9 @@ class _FusedPolicy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dmeans):
         obs, hid, stash, rstd, *params = ctx.saved_tensors
-        grads = policy_bwd(obs, hid, dmeans.contiguous(), stash, rstd, params, ctx.n_id)
+        dmeans = dmeans.contiguous()
+        with profiling.span("policy.fused_bwd"):
+            grads = policy_bwd(obs, hid, dmeans, stash, rstd, params, ctx.n_id)
         return (None, None, None, *grads)
 
 

@@ -52,6 +52,10 @@ SPANS = (
                             # or update.target
     "update.attend",        # its attention: projections, logits, masked softmax,
                             # weighted sum, regulariser; in update.critic
+    "policy.fused_fwd",     # the fused policy's forward kernel (nets/policy_gru.py);
+                            # in update.loss
+    "policy.fused_bwd",     # its backward kernel and the blocks' sum; in
+                            # update.backward
     "train.target_update",  # PGTrainer._soft_update; outside train.chunk
     "replay.gather",        # the index gather of a sampled window of a ring
                             # longer than the window; in update.sample

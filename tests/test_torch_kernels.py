@@ -371,20 +371,27 @@ def _smoke():
 
 
 # beside the update batches of chip_smoke.py (POLICY_CASES): a row count
-# that ends inside a tile, and a policy without agent ids
-POLICY_EXTRA = {"ragged": (6, 38, 6 * 1001), "no_ids": (0, 38, 3001)}
+# that ends inside a tile, a policy without agent ids, and obs wider than
+# 64 (the kernels' second obs tile): case33's and case322's at history 2
+# (76 and 124), the widest (128) at the most agents it takes (44), and 128
+# without ids
+POLICY_EXTRA = {"ragged": (6, 38, 6 * 1001), "no_ids": (0, 38, 3001),
+                "obs76": (6, 76, 6 * 5001), "obs124": (38, 124, 38 * 2001),
+                "obs128": (44, 128, 44 * 1001), "no_ids_obs128": (0, 128, 3001)}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["case33", "case322", "ragged", "no_ids"])
+@pytest.mark.parametrize("case", ["case33", "case322", "case141", "ragged", "no_ids", "obs76",
+                                  "obs124", "obs128", "no_ids_obs128"])
 def test_policy_kernels_match_plain_version(cuda, case):
-    """Both kernels at the update batch of case33 train8192 (196,608 rows)
-    and case322 train4096 (4,980,736 rows), at a row count that ends inside
-    a tile and without agent ids, against the plain versions in float64 on
-    the same inputs, to chip_smoke.py's tolerances and for its reasons: the
-    forward's means, stash and 1/std to 1e-5 of their largest magnitude,
-    each gradient from the kernel's own stash to 2e-5 of its norm; two runs
-    bit for bit."""
+    """Both kernels at the update batch of case33 train8192 (196,608 rows),
+    case322 train4096 (4,980,736 rows) and case141 train4096 (2,883,584
+    rows, obs 66 wide), at a row count that ends inside a tile, without
+    agent ids, and at obs widths 76, 124 and 128, against the plain
+    versions in float64 on the same inputs, to chip_smoke.py's tolerances
+    and for its reasons: the forward's means, stash and 1/std to 1e-5 of
+    their largest magnitude, each gradient from the kernel's own stash to
+    2e-5 of its norm; two runs bit for bit."""
     from mapdn_torch.nets import policy_gru
     smoke = _smoke()
     n, o, rows = dict(smoke.POLICY_CASES, **POLICY_EXTRA)[case]
@@ -415,6 +422,11 @@ def test_policy_kernel_wrappers_check_their_operands(cuda):
         policy_gru.policy_fwd_kernel(obs.double(), hid.double(), params, 6)
     with pytest.raises(ValueError, match="shapes"):
         policy_gru.policy_fwd_kernel(obs, hid[:, :32], params, 6)
+    # past the second obs tile, and past the agents it leaves room for
+    for n, o in ((0, 129), (45, 66)):
+        module, obs, hid, _ = _smoke().policy_case(n, o, 90)
+        with pytest.raises(ValueError, match=f"obs width {o}"):
+            policy_gru.policy_fwd_kernel(obs, hid, list(module.parameters()), n)
 
 
 @pytest.mark.cuda

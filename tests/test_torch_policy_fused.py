@@ -2,7 +2,8 @@
 
 Its plain versions (the forward with its stash, the backward with its
 blockwise partial sums) against autograd through ``MARLModel.policy`` at
-case33's and case322's shapes in float64; which calls ``fused_reason``
+case33's, case322's and case141's shapes in float64, and at obs widths
+128 and 1 (the kernels' widest and narrowest); which calls ``fused_reason``
 sends to the kernels; the counters ``policy.fused_rows`` and
 ``policy.plain_rows``.  The kernels themselves are checked on the card in
 tests/test_torch_kernels.py.
@@ -17,8 +18,10 @@ from mapdn_torch.utils.config import load_config
 
 torch.set_num_threads(1)
 
-# (agents, obs width, lanes): case33 and case322 (distributed mode)
-SHAPES = {"case33": (6, 38, 50), "case322": (38, 62, 8)}
+# (agents, obs width, lanes): case33, case322 and case141 (distributed mode),
+# and the widest and narrowest obs the kernels take
+SHAPES = {"case33": (6, 38, 50), "case322": (38, 62, 8), "case141": (22, 66, 12),
+          "obs128": (6, 128, 50), "obs1": (6, 1, 50)}
 
 
 def _model(alg="mappo", n=6, o=38, dtype=torch.float64, seed=0, **over):
@@ -106,6 +109,18 @@ def test_fused_reason(on_card, alg, over, dtype, grad, need_hid, reason):
     hid = hid[..., :module.hid_size]
     with torch.set_grad_enabled(grad):
         assert policy_gru.fused_reason(module, obs, hid, model.id_dim(), need_hid) == reason
+
+
+@pytest.mark.parametrize("n,o,reason", [
+    (22, 66, None), (6, 128, None), (44, 128, None), (64, 64, None), (6, 1, None),
+    (6, 129, "layers"), (45, 66, "layers"), (22, 132, "layers")])
+def test_fused_reason_by_obs_width(on_card, n, o, reason):
+    """One or two 64-column obs tiles: obs up to 128 columns, with up to 64
+    agents at 64 or fewer and up to 44 past 64 (case141 at history 2,
+    132 columns, keeps the module's ops)."""
+    model, module = _model(n=n, o=o, dtype=torch.float32)
+    obs, hid, _ = _inputs(2, n, o, dtype=torch.float32)
+    assert policy_gru.fused_reason(module, obs, hid, model.id_dim(), False) == reason
 
 
 def test_fused_reason_wants_float32_on_the_card():

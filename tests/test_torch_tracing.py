@@ -35,6 +35,7 @@ PARENTS = {
     "update.target": {"update.loss"}, "train.target_update": {None},
     "replay.gather": {"update.sample"},
     "update.critic": {"update.loss", "update.target"}, "update.attend": {"update.critic"},
+    "policy.fused_fwd": {"update.loss"}, "policy.fused_bwd": {"update.backward"},
 }
 
 
@@ -44,10 +45,10 @@ def _build(ring_steps, alg="mappo", max_steps=CHUNK, **over):
     12-step chunks."""
     env = make_env("case33", EnvConfig(episode_limit=EPISODE), days=2,
                    dtype=torch.float32, device="cpu")
-    cfg, _ = load_config(alg, overrides=dict(
+    cfg, _ = load_config(alg, overrides=dict(dict(
         n_envs=L, behaviour_update_freq=CHUNK, batch_size=4,
         replay_buffer_size=L * ring_steps, update_lanes=8, value_update_epochs=2,
-        policy_update_epochs=1, replay_bf16=False, hid_size=16, **over))
+        policy_update_epochs=1, replay_bf16=False, hid_size=16), **over))
     info = env.get_env_info()
     cfg = cfg.replace(agent_num=info["n_agents"], obs_size=info["obs_shape"],
                       action_dim=info["n_actions"], max_steps=max_steps)
@@ -205,6 +206,32 @@ def test_target_and_gather_spans_of_an_off_policy_ring():
     assert profiling.active() is None
     assert idle.summary() == {"spans": {}, "counters": {}}
     assert tracer.summary()["spans"]["train.chunk"]["calls"] == 2
+
+
+def test_fused_policy_spans_of_a_chunk(monkeypatch):
+    """A MAPPO chunk at hidden width 64 with the fused policy on its plain
+    versions (float32 CPU tensors standing for the card's): each policy
+    epoch opens ``policy.fused_fwd`` in ``update.loss`` and
+    ``policy.fused_bwd`` in ``update.backward``, and counts its rows as
+    fused; with no tracer active the chunk is bit for bit the same."""
+    from mapdn_torch.nets import policy_gru
+    monkeypatch.setattr(policy_gru, "_on_card", lambda t: t.dtype == torch.float32)
+    off = _build(8, hid_size=64, policy_update_epochs=2)
+    carry_off, stats_off = off._train_chunk(off.carry)
+    on = _build(8, hid_size=64, policy_update_epochs=2)
+    tracer = profiling.Tracer()
+    with profiling.tracing(tracer):
+        carry_on, stats_on = on._train_chunk(on.carry)
+    for x, y in zip(_tensors(carry_off) + _tensors(stats_off),
+                    _tensors(carry_on) + _tensors(stats_on)):
+        assert torch.equal(x, y)
+    _check_tree(tracer)
+    out = tracer.summary()
+    spans, counters = out["spans"], out["counters"]
+    n = on.env.n_agents
+    assert spans["policy.fused_fwd"]["calls"] == spans["policy.fused_bwd"]["calls"] == 2
+    assert counters["policy.fused_rows"] == 2 * on.cfg.batch_size * on.cfg.update_lanes * n
+    assert "policy.plain_rows" not in counters
 
 
 def test_tester_day_traced(monkeypatch):
